@@ -11,13 +11,20 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at main-path shapes, with the bars below; both are timed
    with CUDA events (warm, many launches, in turns plain/kernel/kernel/
-   plain);
+   plain; the survivor-rows kernel against one timed plain call);
 3. search: ``hmmsearch(device="cuda")`` once warm, then three timed runs;
-   every kernel's launch counter must be > 0 in the last run; a fifth
-   run through ``SearchEngine.search`` reads the engine's stage marks;
+   every kernel's launch counter must be > 0 in the last run (the rows
+   kernel's must stay 0); a fifth run through ``SearchEngine.search``
+   reads the engine's stage marks.  Then the same with the device rows
+   stage on (``device_rows=True``): the rows kernel's counter and the
+   engine's ``n_rows_ext`` must be > 0;
 4. correctness: for three distinct queries (padded model width <= 384,
    384..768 and > 768), the reported rows of the search equal the
    sequential oracle pipeline's over the same targets, with the same Z;
+   and with the cascade forced (no speculation, no sparse host path), a
+   search with the rows stage on reports for every query the same
+   names, inclusion, domain envelopes and pass counts as one with it
+   off, with scores and biases within 2e-3 bits;
 5. ``jax`` was never imported.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
@@ -44,20 +51,35 @@ from pyhmmer_tpu_torch import engine as E  # noqa: E402
 from pyhmmer_tpu_torch import hmmsearch  # noqa: E402
 from pyhmmer_tpu_torch.ops import _build  # noqa: E402
 from pyhmmer_tpu_torch.ops import batch as B  # noqa: E402
-from pyhmmer_tpu_torch.ops import fwd_cuda, msv_cuda, vit_cuda  # noqa: E402
+from pyhmmer_tpu_torch.ops import (fwd_cuda, msv_cuda, rows_cuda,  # noqa: E402
+                                   vit_cuda)
 
 NEG_LIVE = -1e29
 #: kernel-vs-plain bars (nats): f32 summation order only
 VIT_TOL = 1e-3
 FWD_TOL = 5e-3
+#: rows bars: fsc and bsc (nats); btot, etot and mocc after an f64
+#: cumsum (the JAX package's, tests/test_rows_pallas.py:111-116)
+ROWS_SC, ROWS_ATOL, ROWS_RTOL = 2e-3, 3e-4, 2e-3
+#: score and bias bar (bits) of the rows-on search against rows off
+#: (tests/test_engine_pallas.py:63-73,106-109)
+ROWS_SCORE_TOL = 2e-3
 KERNELS = {
     "msv": (msv_cuda, "pyhmmer_tpu_torch/csrc/msv.cu",
             "pyhmmer_tpu/ops/msv_pallas.py:355"),
     "fwd": (fwd_cuda, "pyhmmer_tpu_torch/csrc/fwd.cu",
-            "pyhmmer_tpu/ops/fwd_pallas.py:586"),
+            "pyhmmer_tpu/ops/fwd_pallas.py:586,156"),
     "vit": (vit_cuda, "pyhmmer_tpu_torch/csrc/vit.cu",
             "pyhmmer_tpu/ops/vit_pallas.py:149"),
+    "rows": (rows_cuda, "pyhmmer_tpu_torch/csrc/rows.cu",
+             "pyhmmer_tpu/ops/rows_pallas.py:473,510"),
 }
+#: the kernels each search path runs
+PATHS = {False: ("msv", "fwd", "vit"), True: ("msv", "fwd", "vit", "rows")}
+#: routing that sends every bias survivor through the device cascade
+#: (tests/test_torch_engine.py:force_device_cascade)
+FORCED = {"SPECULATE_P1B": -1.0, "HOST_MIN_PAIRS": 0,
+          "HOST_PAIRS_PER_ROW": 0.0}
 
 
 def say(phase, **kw):
@@ -106,6 +128,17 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), ms) of one call, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def in_turns(kernel, plain, reps_k, reps_p):
@@ -230,15 +263,78 @@ def phase_parity(queries, targets):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms))
             say("parity", kernel=name, **results[name][-1],
                 bar=f"|kernel - plain| <= {tol} nats on live pairs")
+
+    # survivor rows: the most populous chunk x the 512 bucket, and the
+    # chunk with 384 < Mp <= 768 x the 2048 bucket
+    results["rows"] = [rows_parity(pbs[big], devs[512], 256, gen),
+                       rows_parity(pbs[mid], devs[2048], 64, gen)]
     return results
 
 
-def phase_search(queries, targets):
+def rows_parity(pb, dev, npairs, gen):
+    """The rows kernel against ``rows_plain`` on ``npairs`` pairs of
+    ``pb`` x ``dev``, sorted by profile as the engine launches them: the
+    four with the highest Forward scores (planted domains, real domain
+    mass) and random ones.  Timed in turns: 10 kernel launches, the plain
+    version once (it loops over every row in Python), 10 launches."""
+    everything = fwd_cuda.fwd_scores(
+        dev.codes, dev.lens, dev.lm, pb.fwd_ems, pb.fwd_eis, pb.fwd_tr,
+        torch.arange(dev.B, device="cuda"),
+        torch.ones((pb.P, dev.B), dtype=torch.bool, device="cuda"))
+    top = torch.topk(everything.flatten(), 4).indices.cpu()
+    flat = torch.sort(torch.cat([top, torch.randint(
+        0, pb.P * dev.B, (npairs - 4,), generator=gen)])).values
+    pair_p = (flat // dev.B).to(torch.int32).cuda()
+    pair_row = (flat % dev.B).to(torch.int32).cuda()
+    args = (dev.codes, dev.lens, dev.lm, pb.fwd_ems, pb.fwd_eis, pb.fwd_tr,
+            pair_p, pair_row)
+    k = rows_cuda.rows_scores(*args)
+    # in turns: kernel, plain, kernel
+    ms = cuda_ms(lambda: rows_cuda.rows_scores(*args), 10)
+    p, plain_ms = timed_once(lambda: rows_cuda.rows_plain(*args))
+    ms = (ms + cuda_ms(lambda: rows_cuda.rows_scores(*args), 10)) / 2
+    (kt, kf, kb), (pt, pf, pbk) = ([x.cpu().numpy() for x in r]
+                                   for r in (k, p))
+    shape = f"P{pb.P} x {npairs} pairs x L{dev.Lmax} x Mk{32 * pb.S}"
+    if not (np.isfinite(kt).all() and np.isfinite(kf).all()
+            and np.isfinite(kb).all()):
+        fail(f"rows: non-finite kernel output ({shape})")
+    sc_err = float(max(np.abs(kf - pf).max(), np.abs(kb - pbk).max()))
+    if sc_err > ROWS_SC:
+        fail(f"rows: fsc/bsc kernel vs plain {sc_err} > {ROWS_SC} nats "
+             f"({shape})")
+    row_err = 0.0
+    for g, b in enumerate(pair_row.cpu().numpy()):
+        L = int(dev.lengths[b])
+        got = rows_cuda.ext_rows(kt[g], L)
+        want = rows_cuda.ext_rows(pt[g], L)
+        if not np.allclose(got, want, atol=ROWS_ATOL, rtol=ROWS_RTOL):
+            fail(f"rows: btot/etot/mocc of pair {g} (L {L}) differ from "
+                 f"the plain version ({shape})")
+        if (kt[g, L + 1:] != 0).any():
+            fail(f"rows: terms past the length of pair {g} ({shape})")
+        row_err = max(row_err, float(np.abs(got - want).max()))
+    rec = dict(shape=shape, tpu="_survivor_rows_impl", max_abs_err=sc_err,
+               rows_max_abs_err=row_err, ms=ms, plain_ms=plain_ms,
+               best_fsc=float(kf.max()),
+               audit_fails=int((np.abs(kf - kb)
+                                >= 2e-2 + 1e-4 * np.abs(kf)).sum()))
+    say("parity", kernel="rows", **rec,
+        bar=f"fsc, bsc within {ROWS_SC} nats; btot/etot/mocc atol "
+            f"{ROWS_ATOL} rtol {ROWS_RTOL}")
+    return rec
+
+
+def phase_search(queries, targets, device_rows=False):
+    """The search path with the device rows stage off or on: one warm
+    run, three timed runs (the counts are read over the last), then one
+    through ``SearchEngine.search`` for the stage marks."""
     ncmp = len(queries) * len(targets)
+    suffix = "_rows" if device_rows else ""
     t = time.time()
-    list(hmmsearch(queries, targets, device="cuda"))
+    list(hmmsearch(queries, targets, device="cuda", device_rows=device_rows))
     torch.cuda.synchronize()
-    say("search_warm", wall_s=time.time() - t)
+    say("search_warm" + suffix, wall_s=time.time() - t)
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for run in range(3):
@@ -246,24 +342,85 @@ def phase_search(queries, targets):
             for mod, _, _ in KERNELS.values():
                 mod.launches = 0
         t = time.time()
-        res = list(hmmsearch(queries, targets, device="cuda"))
+        res = list(hmmsearch(queries, targets, device="cuda",
+                             device_rows=device_rows))
         torch.cuda.synchronize()
         walls.append(time.time() - t)
     launches = {k: mod.launches for k, (mod, _, _) in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     # once more through the engine that hmmsearch builds, for its marks
-    eng = E.SearchEngine(queries[0].alphabet, device="cuda")
+    eng = E.SearchEngine(queries[0].alphabet, device="cuda",
+                         device_rows=device_rows)
     t = time.time()
     eng.search(queries, targets)
     torch.cuda.synchronize()
-    say("search", queries=len(queries), targets=len(targets),
+    marks = eng.last_timing
+    say("search" + suffix, queries=len(queries), targets=len(targets),
         comparisons=ncmp, wall_s=walls, cmp_per_s=[ncmp / w for w in walls],
         max_memory_allocated=peak, launches=launches,
-        marks_wall_s=time.time() - t, stage_marks=eng.last_timing)
+        marks_wall_s=time.time() - t, stage_marks=marks)
     for k, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was not launched by the search")
+        if k in PATHS[device_rows] and n <= 0:
+            fail(f"kernel {k} was not launched by the search{suffix}")
+        if k not in PATHS[device_rows] and n != 0:
+            fail(f"kernel {k} was launched by the search{suffix}")
+    if device_rows:
+        if marks.get("n_rows_ext", 0) <= 0:
+            fail("no pair of the rows-on search took the device rows")
+        say("rows_stage", pairs_launched=marks.get("n_rows_pairs", 0),
+            n_rows_ext=marks.get("n_rows_ext", 0),
+            sent_back=marks.get("n_rows_back", 0))
     return res, launches
+
+
+def forced_search(queries, targets, device_rows):
+    """One search with every bias survivor on the device cascade."""
+    saved = {name: getattr(E, name) for name in FORCED}
+    for name, value in FORCED.items():
+        setattr(E, name, value)
+    try:
+        eng = E.SearchEngine(queries[0].alphabet, device="cuda",
+                             device_rows=device_rows)
+        t = time.time()
+        res = eng.search(queries, targets)
+        torch.cuda.synchronize()
+        return res, time.time() - t, eng.last_timing
+    finally:
+        for name, value in saved.items():
+            setattr(E, name, value)
+
+
+def phase_rows_correctness(queries, targets):
+    """The forced cascade with the rows stage on against it off: the same
+    hits, envelopes and pass counts for every query; scores and biases
+    carry the f32 device Forward score, so they agree within 2e-3."""
+    off, wall_off, _ = forced_search(queries, targets, False)
+    on, wall_on, marks = forced_search(queries, targets, True)
+    if marks.get("n_rows_ext", 0) <= 0:
+        fail("forced search: no pair took the device rows")
+    worst = 0.0
+    for a, b in zip(on, off):
+        name = a.query_name.decode()
+        if envelopes(a) != envelopes(b):
+            fail(f"{name}: rows-on hits or envelopes differ from rows off")
+        for n in ("n_past_msv", "n_past_bias", "n_past_vit", "n_past_fwd"):
+            if getattr(a, n) != getattr(b, n):
+                fail(f"{name}: {n} {getattr(a, n)} != {getattr(b, n)}")
+        for ha, hb in zip(a.reported, b.reported):
+            d = max(abs(ha.score - hb.score), abs(ha.bias - hb.bias))
+            if d >= ROWS_SCORE_TOL:
+                fail(f"{name}: {ha.name.decode()} score/bias off by {d}")
+            worst = max(worst, d)
+    say("rows_correctness", wall_off_s=wall_off, wall_on_s=wall_on,
+        reported=sum(len(th.reported) for th in on),
+        pairs_launched=marks.get("n_rows_pairs", 0),
+        n_rows_ext=marks["n_rows_ext"], sent_back=marks.get("n_rows_back", 0),
+        max_score_bias_diff=worst, bar=ROWS_SCORE_TOL)
+
+
+def envelopes(th):
+    return [(h.name, h.included, [(d.env_from, d.env_to) for d in h.domains])
+            for h in th.reported]
 
 
 def phase_correctness(queries, models, targets, planted, res):
@@ -319,7 +476,10 @@ def main():
         mean_M=float(np.mean([q.M for q in queries])))
     parity = phase_parity(queries, targets)
     res, launches = phase_search(queries, targets)
+    _, launches_rows = phase_search(queries, targets, device_rows=True)
+    launches["rows"] = launches_rows["rows"]
     phase_correctness(queries, models, targets, planted, res)
+    phase_rows_correctness(queries, targets)
     if "jax" in sys.modules:
         fail("jax was imported")
     say("imports", jax_imported=False, total_s=time.time() - t0)

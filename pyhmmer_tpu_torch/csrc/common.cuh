@@ -1,7 +1,7 @@
-// Shared helpers for the filter-cascade kernels (msv.cu, vit.cu, fwd.cu).
+// Shared helpers for the port's kernels (msv.cu, vit.cu, fwd.cu, rows.cu).
 //
-// Layout shared by the three kernels: one warp scores one (profile,
-// target) pair.  The model's Mk = 32 * S slots are cut into 32 contiguous
+// Layout shared by the kernels: one warp scores one (profile, target)
+// pair.  The model's Mk = 32 * S slots are cut into 32 contiguous
 // stripes of S slots, lane l owning slots l*S .. l*S+S-1 in registers, so
 // the row-to-row dependency on slot k-1 stays inside a lane except at a
 // stripe's first slot, which takes the previous lane's last slot with one

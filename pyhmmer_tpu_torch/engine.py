@@ -14,6 +14,12 @@ the sequential oracle pipeline's:
 3. Viterbi on the Forward survivors whose MSV P-value did not already
    let them skip it (``ops/vit_cuda.py``).
 
+With ``device_rows=True`` (off by default, as ``PYHMMER_TPU_DEVICE_ROWS``
+is in the JAX engine) the final survivors of stages 2 and 3 in eligible
+(chunk, bucket)s also run their full-length Forward/Backward parsers and
+posterior decode on the device (``ops/rows_cuda.py``), and the native
+domain definition starts from those rows at region finding.
+
 Every stage kernel runs if and only if the engine's ``device`` is a CUDA
 device; on the CPU the kernels' plain PyTorch versions run.  Each stage's
 device outputs come back with one ``torch.cat`` and one device-to-host
@@ -44,7 +50,7 @@ from pyhmmer_tpu.plan7.profile import Profile
 from pyhmmer_tpu.plan7.results import TopHits
 
 from .ops import batch as B
-from .ops import fwd_cuda, msv_cuda, vit_cuda
+from .ops import fwd_cuda, msv_cuda, rows_cuda, vit_cuda
 
 __all__ = ["SearchEngine"]
 
@@ -61,6 +67,11 @@ SPECULATE_P1B = 1e-6
 #: instead of the device cascade (both 0: never)
 HOST_MIN_PAIRS = 4
 HOST_PAIRS_PER_ROW = 6e-4
+#: the device rows stage takes (chunk, bucket)s with Lmax <= ROWS_MAX_L
+#: and a model width, rounded up to 128, of at most ROWS_MAX_MP (the JAX
+#: engine's limits, ``pyhmmer_tpu/engine.py:692-698``)
+ROWS_MAX_L = 2048
+ROWS_MAX_MP = 768
 
 
 def resolve_device(device) -> torch.device:
@@ -205,13 +216,16 @@ class SearchEngine:
     """Batched hmmsearch over many queries and one target block.
 
     ``device`` selects where the cascade runs: a CUDA device runs the
-    hand-written kernels, ``"cpu"`` their plain PyTorch versions."""
+    hand-written kernels, ``"cpu"`` their plain PyTorch versions.
+    ``device_rows`` turns on the device rows stage (see the module
+    docstring); it needs the native library."""
 
     def __init__(self, alphabet: Alphabet, device="cuda",
-                 **pipeline_options):
+                 device_rows: bool = False, **pipeline_options):
         self.alphabet = alphabet
         self.background = Background(alphabet)
         self.device = resolve_device(device)
+        self.device_rows = bool(device_rows)
         self.options = pipeline_options
         self._model_cache: dict = {}
         self.last_timing: dict = {}
@@ -272,10 +286,13 @@ class SearchEngine:
         executor = _cf.ThreadPoolExecutor(nthreads) if native_ok else None
         pending = []   # (job tuple, future | None, speculative)
 
-        def run_domaindef(job):
+        def run_domaindef(job, ext=None):
             """Worker body: optional native Viterbi F2 gate (host-routed
             sparse pairs), then native domaindef + the exact F3 gate +
-            Hit construction; the collect loop appends serially."""
+            Hit construction; the collect loop appends serially.  ``ext``
+            = (rows [3, L+1] f64, f32 Forward score) from the rows stage:
+            the native call then skips its own parsers and reruns them
+            itself where a region threshold is marginal."""
             (ci, bi, pi, tgt, b, seed, fwd_min, filtersc_b, nullsc_b,
              vit_min) = job
             st = states[ci]
@@ -287,8 +304,10 @@ class SearchEngine:
                     return None                  # caller falls back
                 if v < vit_min:
                     return ("gated_vit",)
+            kw = {} if ext is None else dict(ext_rows=ext[0],
+                                             ext_fwdsc=ext[1])
             out = _native.domaindef(st.profs[pi], sq.sequence, pli.null2,
-                                    seed, fwd_min=fwd_min)
+                                    seed, fwd_min=fwd_min, **kw)
             if out is None:
                 return None                      # caller falls back
             fwdsc, res = out
@@ -300,8 +319,57 @@ class SearchEngine:
 
         ctx: dict = {}
 
+        # -- device rows stage: final survivors of stages 2 and 3 are held
+        # back per (chunk, bucket), launched through the rows kernels in
+        # two waves and reach the pool with their rows attached --
+        rows_enabled = self.device_rows and native_ok
+        rows_pending: dict = {}      # (ci, bi) -> [job, ...]
+        rows_launched: list = []     # (ci, bi, jobs, terms, fsc, bsc)
+
+        def rows_ok(ci, bi):
+            Lmax = buckets.buckets[bi][3].Lmax
+            Mp = max(128, B.round_up(states[ci].pb.Mp, 128))
+            return rows_enabled and Lmax <= ROWS_MAX_L and Mp <= ROWS_MAX_MP
+
+        def launch_rows():
+            """Enqueue the rows kernels for every held-back group."""
+            for (ci, bi), jobs in rows_pending.items():
+                pair_p = np.array([j[2] for j in jobs], np.int32)
+                pair_b = np.array([j[4] for j in jobs], np.int32)
+                terms, fsc, bsc, order = rows_cuda.survivor_rows(
+                    states[ci].pb, buckets.buckets[bi][3], pair_p, pair_b)
+                rows_launched.append((ci, bi, [jobs[k] for k in order],
+                                      terms, fsc, bsc))
+                tmark["n_rows_pairs"] = tmark.get("n_rows_pairs", 0) + len(
+                    jobs)
+            rows_pending.clear()
+
+        def collect_rows():
+            """One fetch of every rows launch; each job goes to the pool
+            with its rows if the f32 Forward and Backward scores agree,
+            and without them (the exact host parsers) if not."""
+            parts = [a for launch in rows_launched for a in launch[3:]]
+            arrs = _fetch_all(parts)
+            for k, (ci, bi, jobs, *_) in enumerate(rows_launched):
+                terms, fsc, bsc = arrs[3 * k: 3 * k + 3]
+                lens_b = buckets.buckets[bi][2]
+                for g, job in enumerate(jobs):
+                    f32, b32 = float(fsc[g]), float(bsc[g])
+                    ext = None
+                    if (np.isfinite(f32) and np.isfinite(b32)
+                            and abs(f32 - b32) < 2e-2 + 1e-4 * abs(f32)):
+                        ext = (rows_cuda.ext_rows(terms[g],
+                                                  int(lens_b[job[4]])), f32)
+                        key = "n_rows_ext"
+                    else:
+                        key = "n_rows_back"
+                    tmark[key] = tmark.get(key, 0) + 1
+                    pending.append((job, executor.submit(run_domaindef, job,
+                                                         ext), False))
+            rows_launched.clear()
+
         def submit(ci, bi, pi, pass_row, fcols, idx, vit_min_row=None,
-                   spec=False):
+                   spec=False, defer=False):
             st = states[ci]
             pli = st.pipelines[pi]
             c = ctx[(ci, bi)]
@@ -310,6 +378,7 @@ class SearchEngine:
             # exp_surv((fwdsc - filtersc)/LOG2) <= F3s  <=>  fwdsc >= min
             gate_off = (LOG2 * (ev[4] - math.log(F3s) / ev[5])
                         if F3s < 1.0 else -np.inf)
+            defer = defer and rows_ok(ci, bi)
             for col in np.where(pass_row)[0]:
                 b = int(fcols[col])
                 seed = (pli.seed if pli.do_reseeding
@@ -321,6 +390,9 @@ class SearchEngine:
                 job = (ci, bi, pi, int(idx[b]), b, seed,
                        filtersc_b + gate_off, filtersc_b, nullsc_b,
                        vit_min)
+                if defer:
+                    rows_pending.setdefault((ci, bi), []).append(job)
+                    continue
                 fut = (executor.submit(run_domaindef, job)
                        if executor is not None else None)
                 pending.append((job, fut, spec))
@@ -503,7 +575,10 @@ class SearchEngine:
                 s3_jobs.append((cj, bi))
             idx = buckets.buckets[bi][0]
             for pi in range(st.Preal):
-                submit(cj, bi, pi, pass_fwd[pi] & ~need_vit[pi], bsel, idx)
+                submit(cj, bi, pi, pass_fwd[pi] & ~need_vit[pi], bsel, idx,
+                       defer=True)
+        # wave 1 of the rows stage: the survivors that skip Viterbi
+        launch_rows()
         mark("s2_done")
         tmark["n_s3_jobs"] = len(s3_jobs)
         s3_np = _fetch_all(s3_parts)
@@ -526,8 +601,13 @@ class SearchEngine:
             idx = buckets.buckets[bi][0]
             survived = c["pass_fwd"][:, vcols] & c["need_vit"][:, vcols]
             for pi in range(st.Preal):
-                submit(cj, bi, pi, survived[pi], bsel[vcols], idx)
+                submit(cj, bi, pi, survived[pi], bsel[vcols], idx,
+                       defer=True)
+        # wave 2 (the Viterbi survivors), then the one rows fetch
+        launch_rows()
         mark("s3_host_done")
+        collect_rows()
+        mark("rows_done")
 
         # ---- collect: serial append of worker-built hits (deterministic
         # insertion order = deterministic tie-breaking in sort) ----

@@ -16,17 +16,20 @@ __all__ = ["hmmsearch"]
 
 
 def hmmsearch(queries, sequences, *, device="cuda", callback=None,
-              block_residues: Optional[int] = None,
+              block_residues: Optional[int] = None, device_rows: bool = False,
               **options) -> Iterator[TopHits]:
     """Search HMM profile(s) against a sequence database; yields one
     :class:`TopHits` per query, in query order.
 
     ``device`` is where the filter cascade runs: ``"cuda"`` (the
     default) runs the CUDA kernels and raises if there is no CUDA device;
-    ``"cpu"`` runs their plain PyTorch versions.  When ``sequences`` is a
-    digital :class:`SequenceFile`, the database is consumed in blocks of
-    ``block_residues`` residues (default 16M) and the per-block results
-    are merged, as in ``pyhmmer_tpu.hmmer.hmmsearch``."""
+    ``"cpu"`` runs their plain PyTorch versions.  ``device_rows=True``
+    also runs the final survivors' full-length parsers and posterior
+    decode on the device (see :class:`SearchEngine`).  When
+    ``sequences`` is a digital :class:`SequenceFile`, the database is
+    consumed in blocks of ``block_residues`` residues (default 16M) and
+    the per-block results are merged, as in
+    ``pyhmmer_tpu.hmmer.hmmsearch``."""
     dev = resolve_device(device)
     queries = _query_list(queries)
     if not queries:
@@ -35,9 +38,10 @@ def hmmsearch(queries, sequences, *, device="cuda", callback=None,
     if isinstance(sequences, SequenceFile):
         return _hmmsearch_streamed(queries, sequences, alphabet, dev,
                                    callback, block_residues or (1 << 24),
-                                   options)
+                                   dict(options, device_rows=device_rows))
     block = _target_block(sequences)
-    eng = SearchEngine(alphabet, device=dev, **options)
+    eng = SearchEngine(alphabet, device=dev, device_rows=device_rows,
+                       **options)
     return iter(eng.search(queries, block, callback=callback))
 
 

@@ -53,6 +53,10 @@ SIGNATURES = {
                    _P, _P],
     "fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P],
+    # codes, Lmax, lens, lm, ems, eis, tr, pair_p, pair_row, npairs, Kp,
+    # S, frows, fsc, terms, bsc, stream
+    "rows_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

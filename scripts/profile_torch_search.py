@@ -1,11 +1,12 @@
 """Where the time of one smoke search goes on an NVIDIA GPU.
 
-    python3 scripts/profile_torch_search.py [TRACE_JSON]
+    python3 scripts/profile_torch_search.py [TRACE_JSON] [--device-rows]
 
 Runs the smoke hmmsearch of ``chip_smoke.py`` (``pyhmmer_tpu_torch``,
-``device="cuda"``) once warm, then once through ``SearchEngine.search``
-(what ``hmmsearch`` runs) under ``torch.profiler`` with CPU
-and CUDA activities.  Prints the wall time, the engine's stage marks, the
+``device="cuda"``, with the device rows stage on if ``--device-rows`` is
+given) once warm, then once through ``SearchEngine.search`` (what
+``hmmsearch`` runs) under ``torch.profiler`` with CPU and CUDA
+activities.  Prints the wall time, the engine's stage marks, the
 device time summed by kernel, and the device's busy share of the wall
 time; writes the Chrome trace to ``TRACE_JSON`` (default
 ``build/torch_search_trace.json``).
@@ -40,11 +41,15 @@ def smi():
 def main():
     if not torch.cuda.is_available():
         sys.exit("profile_torch_search: no CUDA device")
+    args = [a for a in sys.argv[1:] if a != "--device-rows"]
+    device_rows = "--device-rows" in sys.argv[1:]
     queries, _, targets, _ = syn.smoke_workload()
-    list(hmmsearch(queries, targets, device="cuda"))
+    list(hmmsearch(queries, targets, device="cuda",
+                   device_rows=device_rows))
     torch.cuda.synchronize()
     before = smi()
-    eng = SearchEngine(queries[0].alphabet, device="cuda")
+    eng = SearchEngine(queries[0].alphabet, device="cuda",
+                       device_rows=device_rows)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.time()
@@ -59,11 +64,12 @@ def main():
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    trace = sys.argv[1] if len(sys.argv) > 1 else TRACE
+    trace = args[0] if args else TRACE
     os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
     prof.export_chrome_trace(trace)
     print(json.dumps({
         "nvidia_smi_before": before, "nvidia_smi_after": after,
+        "device_rows": device_rows,
         "wall_s": wall, "stage_marks": eng.last_timing,
         "device_busy_s": busy_s if rows else "not measured",
         "device_busy_share": busy_s / wall if rows else "not measured",

@@ -111,17 +111,30 @@ def test_cuda_device_raises_without_cuda(workload, monkeypatch):
         pyhmmer_tpu_torch.SearchEngine(hmms[0].alphabet)
 
 
-def test_search_never_imports_jax():
+@pytest.mark.parametrize("device_rows", [False, True],
+                         ids=["rows_off", "rows_on"])
+def test_search_never_imports_jax(device_rows):
+    """A search imports no JAX, with the device rows stage off and on
+    (on: with the cascade forced, so the rows stage has pairs)."""
+    force = ("for k, v in (('SPECULATE_P1B', -1.0), ('HOST_MIN_PAIRS', 0),"
+             " ('HOST_PAIRS_PER_ROW', 0.0)):\n"
+             "    setattr(pt.engine, k, v)\n") if device_rows else ""
     code = (
         "import sys\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "import pyhmmer_tpu_torch as pt\n"
         "from pyhmmer_tpu_torch import _synthetic as syn\n"
+        + force +
         "models = syn.smoke_models()[:2]\n"
         "targets, _ = syn.make_targets(models, 30, seed=1)\n"
-        "res = list(pt.hmmsearch(models, targets, device='cpu'))\n"
+        "res = list(pt.hmmsearch(models, targets, device='cpu', "
+        f"device_rows={device_rows}))\n"
         "assert len(res) == 2 and all(th.reported for th in res)\n"
+        "eng = pt.SearchEngine(models[0].alphabet, device='cpu', "
+        f"device_rows={device_rows})\n"
+        "eng.search(models, targets)\n"
+        f"assert ('n_rows_ext' in eng.last_timing) == {device_rows}\n"
         "jax = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
         "assert not jax, jax\n"
         "print('no jax')\n")

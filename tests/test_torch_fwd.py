@@ -3,21 +3,30 @@
 ``ops.batch._forward_kernel`` and the float64 oracle ``ops.reference``,
 within 0.05 nats, on padded widths on both sides of 384 and 768 (the
 JAX engine's Forward routes) and with a ``need`` mask holding dead
-pairs.  On the CPU the wrapper runs the kernel's plain version."""
+pairs; on the two narrower stacks also against the v1 Pallas Forward
+(``fwd_pallas._fwd_pallas``, in interpret mode).  On the CPU the wrapper
+runs the kernel's plain version."""
 
+import os
+import sys
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from pyhmmer_tpu.ops import batch as JB
-from pyhmmer_tpu.ops import reference as ref
-from pyhmmer_tpu.plan7.background import Background
-from pyhmmer_tpu.plan7.profile import Profile
-from pyhmmer_tpu_torch import _synthetic as syn
-from pyhmmer_tpu_torch.ops import batch as TB
-from pyhmmer_tpu_torch.ops import fwd_cuda
+# the v1 Pallas Forward runs through the Pallas interpreter; the flag is
+# read when the module is imported
+os.environ["PYHMMER_TPU_PALLAS_INTERPRET"] = "1"
+sys.modules.pop("pyhmmer_tpu.ops.fwd_pallas", None)
+
+from pyhmmer_tpu.ops import batch as JB  # noqa: E402
+from pyhmmer_tpu.ops import reference as ref  # noqa: E402
+from pyhmmer_tpu.plan7.background import Background  # noqa: E402
+from pyhmmer_tpu.plan7.profile import Profile  # noqa: E402
+from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
+from pyhmmer_tpu_torch.ops import batch as TB  # noqa: E402
+from pyhmmer_tpu_torch.ops import fwd_cuda  # noqa: E402
 
 # the plain versions loop over small tensors: one intra-op thread per
 # test process keeps pytest-xdist workers from oversubscribing the cores
@@ -49,7 +58,7 @@ def case(request):
                            torch.from_numpy(need)).numpy()
     return SimpleNamespace(hmms=hmms, bg=bg, codes=codes, lengths=lengths,
                            rows=rows, need=need, out=out,
-                           jax=jax_all[:, rows], dev=dev)
+                           jax=jax_all[:, rows], dev=dev, jpb=jpb)
 
 
 def test_dead_pairs_read_negmass(case):
@@ -61,6 +70,24 @@ def test_matches_xla_forward_scan(case):
     live = case.need & (case.jax > -1e29)
     assert np.array_equal(case.out > -1e29, live)
     err = np.abs(case.out - case.jax)[live]
+    assert err.max() < BAR, err.max()
+
+
+@pytest.mark.parametrize("case", STACKS[:2], indirect=True,
+                         ids=lambda s: f"Mp{s[1]}")
+def test_matches_v1_pallas_forward(case):
+    """The v1 Pallas Forward (``_fwd_pallas``, which nothing in the JAX
+    package calls; its D->D chain is a full [Mp, Mp] transfer matmul per
+    row) on every lane: ``csrc/fwd.cu`` computes the same function."""
+    from pyhmmer_tpu.ops import fwd_pallas as FP
+    t = FP.build_fwd_tensors(case.jpb)
+    v1 = np.asarray(FP._fwd_pallas(
+        case.lengths.astype(np.int32)[None, :],
+        case.codes.T.astype(np.int32), t["ems"], t["eis"], t["etr"],
+        t["tdd"], FP.lm_rows(case.lengths)))[:, case.rows]
+    live = case.need & (v1 > -1e29)
+    assert np.array_equal(case.out > -1e29, live)
+    err = np.abs(case.out - v1)[live]
     assert err.max() < BAR, err.max()
 
 

@@ -1,8 +1,10 @@
-"""The port's three CUDA kernels against their plain PyTorch versions on
-the card (MSV exact; Viterbi <= 1e-3 nats; Forward <= 5e-3 nats, the f32
-summation order being the only difference).  Marked ``gpu``: they skip
-where there is no CUDA device.  On the card, where JAX is not installed,
-run them without the repository's conftest::
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card (MSV exact; Viterbi <= 1e-3 nats; Forward <= 5e-3 nats; the survivor
+rows' scores within 2e-3 nats and their decoded rows within the JAX
+package's bars; the f32 summation order being the only difference).
+Marked ``gpu``: they skip where there is no CUDA device.  On the card,
+where JAX is not installed, run them without the repository's
+conftest::
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -17,13 +19,18 @@ from pyhmmer_tpu.plan7.background import Background
 from pyhmmer_tpu.plan7.profile import Profile
 from pyhmmer_tpu_torch import _synthetic as syn
 from pyhmmer_tpu_torch.ops import batch as TB
-from pyhmmer_tpu_torch.ops import fwd_cuda, msv_cuda, vit_cuda
+from pyhmmer_tpu_torch.ops import fwd_cuda, msv_cuda, rows_cuda, vit_cuda
 
 pytestmark = pytest.mark.gpu
 
 STACKS = [((40, 100, 170), 192), ((800,), 832), ((1500,), 1536),
           ((2500,), 2560)]
 VIT_TOL, FWD_TOL = 1e-3, 5e-3
+#: rows widths 192 and 768 (the edge of the rows stage's eligibility)
+ROWS_STACKS = [((40, 100, 170), 192), ((700,), 704)]
+#: rows bars: scores (nats), then btot/etot/mocc after an f64 cumsum
+#: (``tests/test_rows_pallas.py:111-116``)
+ROWS_SC, ROWS_ATOL, ROWS_RTOL = 2e-3, 3e-4, 2e-3
 
 
 @pytest.fixture(scope="module")
@@ -113,3 +120,76 @@ def test_engine_on_cuda_launches_the_kernels(cuda, monkeypatch):
     assert all(th.reported for th in res)
     assert after[0] > before[0] and after[1] > before[1]
     assert np.isfinite([h.score for th in res for h in th.reported]).all()
+
+
+@pytest.fixture(scope="module", params=ROWS_STACKS,
+                ids=lambda s: f"Mp{s[1]}")
+def rows_case(cuda, request):
+    """Every profile against 48 lanes of length <= 640 (consensus and
+    planted lanes, nonresidue codes inside targets, 8-row edges)."""
+    Ms, Mp = request.param
+    hmms = syn.sample_models(Ms, seed=Mp)
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    profs = [Profile(h.M, aa).configure(h, bg, 400, multihit=True)
+             for h in hmms]
+    pb = TB.ProfileBatch(profs, Mp=Mp).to(cuda)
+    codes, lengths = syn.make_lanes(hmms, 48, 640, seed=Mp + 5)
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    n = len(Ms) * 48
+    pair_p = torch.arange(n, dtype=torch.int32, device=cuda) // 48
+    pair_row = torch.arange(n, dtype=torch.int32, device=cuda) % 48
+    return SimpleNamespace(pb=pb, dev=dev, lengths=lengths,
+                           pair_row=pair_row.cpu().numpy(),
+                           args=(dev.codes, dev.lens, dev.lm, pb.fwd_ems,
+                                 pb.fwd_eis, pb.fwd_tr, pair_p, pair_row))
+
+
+def test_rows_kernels_match_plain(rows_case):
+    before = rows_cuda.launches
+    k = rows_cuda.rows_scores(*rows_case.args)
+    assert rows_cuda.launches == before + 1
+    p = rows_cuda.rows_plain(*rows_case.args)
+    torch.cuda.synchronize()
+    (kt, kf, kb), (pt, pf, pbk) = ([x.cpu().numpy() for x in r]
+                                   for r in (k, p))
+    assert np.isfinite(kt).all() and np.isfinite(kf).all()
+    assert np.abs(kf - pf).max() <= ROWS_SC
+    assert np.abs(kb - pbk).max() <= ROWS_SC
+    assert np.abs(kf - kb).max() <= ROWS_SC
+    for g, b in enumerate(rows_case.pair_row):
+        L = int(rows_case.lengths[b])
+        np.testing.assert_allclose(rows_cuda.ext_rows(kt[g], L),
+                                   rows_cuda.ext_rows(pt[g], L),
+                                   atol=ROWS_ATOL, rtol=ROWS_RTOL)
+        assert (kt[g, L + 1:] == 0).all()
+
+
+def test_engine_rows_stage_on_cuda(cuda, monkeypatch):
+    """A small search on the card with the cascade forced and the rows
+    stage on goes through the rows kernel and reports what the rows-off
+    search reports (scores within 2e-3 bits)."""
+    import pyhmmer_tpu_torch as pt
+    for name, value in (("SPECULATE_P1B", -1.0), ("HOST_MIN_PAIRS", 0),
+                        ("HOST_PAIRS_PER_ROW", 0.0)):
+        monkeypatch.setattr(pt.engine, name, value)
+    models = syn.smoke_models()[-6:-2]
+    targets, _ = syn.make_targets(models, 120, seed=4)
+    off = pt.SearchEngine(models[0].alphabet, device=cuda).search(
+        models, targets)
+    eng = pt.SearchEngine(models[0].alphabet, device=cuda, device_rows=True)
+    before = rows_cuda.launches
+    on = eng.search(models, targets)
+    assert rows_cuda.launches > before
+    assert eng.last_timing.get("n_rows_ext", 0) > 0, eng.last_timing
+
+    def hits(th):
+        return [(h.name, h.included,
+                 [(d.env_from, d.env_to) for d in h.domains])
+                for h in th.reported]
+    for a, b in zip(on, off):
+        assert hits(a) == hits(b)
+        for ha, hb in zip(a.reported, b.reported):
+            assert abs(ha.score - hb.score) < 2e-3
+            assert abs(ha.bias - hb.bias) < 2e-3
