@@ -6,12 +6,17 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 (``pyhmmer_tpu_torch/_synthetic.py``: ~245 sampled profile HMMs against
 4,002 targets) and fails (non-zero exit) on any of:
 
-1. environment: no CUDA device, a device that is not sm_90, the host
-   native library missing, or a kernel that does not build;
+1. environment: no CUDA device, a device that is not sm_90, the port's
+   host native library missing, or a kernel that does not build (the
+   DPX, permute, vote and reduce instructions of the MSV kernels are
+   counted from ``cuobjdump -sass``);
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
-   the card, at main-path shapes, with the bars below; both are timed
-   with CUDA events (warm, many launches, in turns plain/kernel/kernel/
-   plain; the survivor-rows kernel against one timed plain call);
+   the card, at main-path shapes (for MSV also the widest chunk x the
+   longest bucket), with the bars below (MSV: ovf identical, dx exact on
+   every pair neither side flags, biaslog within 0.25 (2e-3 + 1e-6 L)
+   nats); both are timed with CUDA events (warm, many launches, in turns
+   plain/kernel/kernel/plain; the survivor-rows kernel against one timed
+   plain call), beside each shape's bound (``bound``);
 3. search: ``hmmsearch(device="cuda")`` once warm, then three timed runs;
    every kernel's launch counter must be > 0 in the last run (the rows
    kernel's must stay 0); a fifth run through ``SearchEngine.search``
@@ -20,18 +25,23 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    engine's ``n_rows_ext`` must be > 0;
 4. correctness: for three distinct queries (padded model width <= 384,
    384..768 and > 768), the reported rows of the search equal the
-   sequential oracle pipeline's over the same targets, with the same Z;
+   sequential oracle pipeline's (the port's own ``Pipeline.search_hmm``)
+   over the same targets, with the same Z;
    and with the cascade forced (no speculation, no sparse host path), a
    search with the rows stage on reports for every query the same
    names, inclusion, domain envelopes and pass counts as one with it
    off, with scores and biases within 2e-3 bits;
-5. ``jax`` was never imported.
+5. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
+   was imported: the port runs on its own host layers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
-the line before it is the kernels' JSON record.
+the line before it is the kernels' JSON record (launches on the main
+path and per search path, error, times of the first parity shape, its
+bound), and the one before that the card's name and power limit.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -44,15 +54,14 @@ if not torch.cuda.is_available():
 
 import numpy as np  # noqa: E402
 
-from pyhmmer_tpu import hmmer as oracle_hmmer  # noqa: E402
-from pyhmmer_tpu.ops import native  # noqa: E402
 from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
 from pyhmmer_tpu_torch import engine as E  # noqa: E402
 from pyhmmer_tpu_torch import hmmsearch  # noqa: E402
 from pyhmmer_tpu_torch.ops import _build  # noqa: E402
 from pyhmmer_tpu_torch.ops import batch as B  # noqa: E402
-from pyhmmer_tpu_torch.ops import (fwd_cuda, msv_cuda, rows_cuda,  # noqa: E402
-                                   vit_cuda)
+from pyhmmer_tpu_torch.ops import (fwd_cuda, msv_cuda, native,  # noqa: E402
+                                   rows_cuda, vit_cuda)
+from pyhmmer_tpu_torch.plan7 import Background, Pipeline, Profile  # noqa: E402,E501
 
 NEG_LIVE = -1e29
 #: kernel-vs-plain bars (nats): f32 summation order only
@@ -64,6 +73,22 @@ ROWS_SC, ROWS_ATOL, ROWS_RTOL = 2e-3, 3e-4, 2e-3
 #: score and bias bar (bits) of the rows-on search against rows off
 #: (tests/test_engine_pallas.py:63-73,106-109)
 ROWS_SCORE_TOL = 2e-3
+#: the least time a kernel could take (bound_ms): the larger of its
+#: operations over the card's peak rate for their type and the bytes of
+#: its inputs (each read once) and outputs (each written once) over the
+#: memory rate; one H100 SXM (NVIDIA's data sheet): 3.35e12 B/s, 67e12
+#: f32 FLOP/s outside the tensor cores, and 132 SMs x 64 integer lanes x
+#: 1.98 GHz = 16.7e12 int32 operations/s, taken twice for int16x2 (two
+#: 16-bit cells per lane; the DPX rate is not published).  Operations per
+#: DP cell (M x L, real widths and lengths, pairs the launch computes):
+#: MSV 4 (HMMER's max with B, add bias, subtract cost, max into E) plus
+#: the bias filter's 10 float operations per (profile, residue); Forward
+#: and Viterbi 16 (M 8, I 4, D 3, E 1); rows 40 (Forward and Backward
+#: parsers and the decode)
+HBM_RATE = 3.35e12
+F32_RATE = 67e12
+INT16X2_RATE = 2 * 132 * 64 * 1.98e9
+MSV_OPS, BIAS_FLOPS, FILTER_FLOPS, ROWS_FLOPS = 4, 10, 16, 40
 KERNELS = {
     "msv": (msv_cuda, "pyhmmer_tpu_torch/csrc/msv.cu",
             "pyhmmer_tpu/ops/msv_pallas.py:355"),
@@ -97,15 +122,15 @@ def rows(th):
 
 
 def ptxas_summary(report):
-    """{kernel<S>: registers, static shared memory and spill bytes} from
-    the ``-Xptxas -v`` report (``msv_kernel`` also takes Kp*S*32 + 128
-    bytes of dynamic shared memory at launch)."""
+    """{kernel or kernel<S>: registers, static shared memory and spill
+    bytes} from the ``-Xptxas -v`` report (``msv_kernel`` also takes
+    Kp * ceil(S/2) * 128 bytes of dynamic shared memory at launch)."""
     out, name = {}, None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)ILi(\d+)EE",
-                      line)
-        if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+        if "Compiling entry function" in line:
+            m = re.search(r"function '_Z\d+([A-Za-z_]\w*?)(?:ILi(\d+)E|P)",
+                          line)
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             out[name] = {"smem_static": 0}
         elif name and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill", line)
@@ -117,6 +142,16 @@ def ptxas_summary(report):
             if m:
                 out[name]["smem_static"] = int(m.group(1))
     return out
+
+
+def bound(ops_s, inputs, outputs):
+    """{bound_ms, bound_by} from the operations' seconds and the bytes of
+    the input and output tensors."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs)
+                 if torch.is_tensor(t))
+    bytes_s = nbytes / HBM_RATE
+    return {"bound_ms": 1e3 * max(float(ops_s), bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
 def cuda_ms(fn, reps):
@@ -157,7 +192,8 @@ def phase_environment(smi):
     if cap != (9, 0):
         fail(f"device capability {cap} is not sm_90")
     if not native.available():
-        fail("pyhmmer_tpu.ops.native is not available (g++ build failed?)")
+        fail("the port's native host library is not available (g++ "
+             "build failed?)")
     t = time.time()
     _build.lib()
     build_s = time.time() - t
@@ -166,11 +202,36 @@ def phase_environment(smi):
         build_s=build_s, nvcc_flags=" ".join(_build.NVCC_FLAGS))
     for kern, info in ptxas_summary(_build.ptxas_report()).items():
         say("ptxas", kernel=kern, **info)
+    say("sass", **sass_summary(_build.LIB, "msv_kernel"))
+
+
+def sass_summary(lib, kernel):
+    """Opcode counts of the DPX, permute, vote and reduce instructions in
+    each compiled ``kernel<S>`` of ``lib`` (``cuobjdump -sass``), to show
+    that the 16-bit intrinsics compiled to DPX instructions."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    try:
+        out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                             text=True, timeout=120).stdout
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return {"error": str(e)}
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            m = re.search(r"Function : _Z\d+(\w+?)ILi(\d+)E", line)
+            name = (f"{m.group(1)}<{m.group(2)}>"
+                    if m and m.group(1) == kernel else None)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                      line)
+        if name and m and re.match(r"(VI|VHMNMX|PRMT|VOTE|REDUX)",
+                                   m.group(1)):
+            op = counts.setdefault(name, {})
+            op[m.group(1)] = op.get(m.group(1), 0) + 1
+    return {"kernels": counts}
 
 
 def chunk_batch(queries, qidx, Mp):
-    from pyhmmer_tpu.plan7.background import Background
-    from pyhmmer_tpu.plan7.profile import Profile
     bg = Background(queries[0].alphabet)
     profs = [Profile(queries[q].M, queries[q].alphabet).configure(
         queries[q], bg, 400, multihit=True) for q in qidx[:E.P_MAX]]
@@ -193,30 +254,45 @@ def phase_parity(queries, targets):
     gen = torch.Generator().manual_seed(0)
     results = {k: [] for k in KERNELS}
 
-    # MSV: every pair of a chunk x bucket
-    for Mp, Lmax in ((big, 512), (big, 2048), (huge, 512)):
+    # MSV: every pair of a chunk x bucket, the last case the widest
+    # chunk x the longest bucket (one plain call, it loops over 35,000
+    # rows)
+    for Mp, Lmax, reps_k, reps_p in ((big, 512, 20, 2), (big, 2048, 20, 2),
+                                     (huge, 512, 20, 2),
+                                     (huge, max(devs), 3, 1)):
         pb, dev = pbs[Mp], devs[Lmax]
-        args = (dev.codes, dev.lens, pb.msv_cost8, pb.msv_scal,
+        args = (dev.codes, dev.lens, pb.msv_w16, pb.msv_scal,
                 pb.msv_odds, dev.tjb, dev.p1)
         k = msv_cuda.msv_scores(*args)
         p = msv_cuda.msv_plain(*args)
         torch.cuda.synchronize()
-        if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
-            fail(f"msv dx/ovf differ from the plain version (Mp {Mp}, "
-                 f"Lmax {Lmax})")
+        shape = f"P{pb.P} x B{dev.B} x L{Lmax} x Mk{32 * pb.S}"
+        if not torch.equal(k[1], p[1]):
+            fail(f"msv ovf differs from the plain version ({shape})")
+        clean = p[1] == 0
+        if not torch.equal(k[0][clean], p[0][clean]):
+            fail(f"msv dx differs from the plain version on an unflagged "
+                 f"pair ({shape})")
         berr = (k[2] - p[2]).abs()
         bar = 0.25 * (2e-3 + 1e-6 * dev.lens.float().clamp(min=1))
         if not bool((berr <= bar[None, :]).all()):
-            fail(f"msv biaslog off by {berr.max().item()} (Mp {Mp}, "
-                 f"Lmax {Lmax})")
+            fail(f"msv biaslog off by {berr.max().item()} ({shape})")
         ms, plain_ms = in_turns(lambda: msv_cuda.msv_scores(*args),
-                                lambda: msv_cuda.msv_plain(*args), 20, 2)
+                                lambda: msv_cuda.msv_plain(*args), reps_k,
+                                reps_p)
+        cells = float(pb.M.astype(np.float64).sum()
+                      * dev.lengths.astype(np.float64).sum())
         results["msv"].append(dict(
-            shape=f"P{pb.P} x B{dev.B} x L{Lmax} x Mk{32 * pb.S}",
+            shape=shape,
             tpu="_msv_pallas2",  # every Mp here is under its row cap
-            max_abs_err=berr.max().item(), ms=ms, plain_ms=plain_ms))
+            max_abs_err=berr.max().item(), ms=ms, plain_ms=plain_ms,
+            flagged=int((p[1] > 0).sum()), cells=cells,
+            **bound(MSV_OPS * cells / INT16X2_RATE
+                    + BIAS_FLOPS * pb.P * dev.lengths.sum() / F32_RATE,
+                    args, k)))
         say("parity", kernel="msv", **results["msv"][-1],
-            bar="dx, ovf exact; biaslog <= 0.25*(2e-3+1e-6 L)")
+            bar="ovf identical; dx exact on unflagged pairs; "
+                "biaslog <= 0.25*(2e-3+1e-6 L)")
 
     # Forward / Viterbi: survivor-like columns (every 8th lane) with a
     # 25% need mask; the widest chunk x every lane of the long bucket
@@ -257,10 +333,15 @@ def phase_parity(queries, targets):
                                     reps_k, reps_p)
             tpu = route if route.startswith("batch") else (
                 "_fwd" + route if name == "fwd" else "_vit_pallas")
+            lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[
+                cols.cpu()]
+            cells = float((torch.as_tensor(pb.M, dtype=torch.float64)[:, None]
+                           * lens[None, :])[need.cpu()].sum())
             results[name].append(dict(
                 shape=f"P{pb.P} x n{len(cols)} (need {int(need.sum())}) x "
                       f"L{dev.Lmax} x Mk{32 * pb.S}", tpu=tpu,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
+                **bound(FILTER_FLOPS * cells / F32_RATE, args, (k,))))
             say("parity", kernel=name, **results[name][-1],
                 bar=f"|kernel - plain| <= {tol} nats on live pairs")
 
@@ -314,8 +395,11 @@ def rows_parity(pb, dev, npairs, gen):
         if (kt[g, L + 1:] != 0).any():
             fail(f"rows: terms past the length of pair {g} ({shape})")
         row_err = max(row_err, float(np.abs(got - want).max()))
+    cells = float(sum(float(pb.M[pp]) * float(dev.lengths[b]) for pp, b in
+                      zip(pair_p.cpu().numpy(), pair_row.cpu().numpy())))
     rec = dict(shape=shape, tpu="_survivor_rows_impl", max_abs_err=sc_err,
                rows_max_abs_err=row_err, ms=ms, plain_ms=plain_ms,
+               cells=cells, **bound(ROWS_FLOPS * cells / F32_RATE, args, k),
                best_fsc=float(kf.max()),
                audit_fails=int((np.abs(kf - kb)
                                 >= 2e-2 + 1e-4 * np.abs(kf)).sum()))
@@ -431,7 +515,9 @@ def phase_correctness(queries, models, targets, planted, res):
                  if lo < padded_width(queries, h) <= hi)
         picks.append(m)
     t = time.time()
-    ref = list(oracle_hmmer.hmmsearch(picks, targets, backend="oracle"))
+    # the sequential oracle: what hmmsearch(backend="oracle") runs in
+    # the JAX package, on the port's own copy of the pipeline
+    ref = [Pipeline(targets.alphabet).search_hmm(q, targets) for q in picks]
     oracle_s = time.time() - t
     for m, th_ref in zip(picks, ref):
         th = by_name[m.name]
@@ -475,23 +561,34 @@ def main():
         targets=len(targets), residues=int(sum(len(s) for s in targets)),
         mean_M=float(np.mean([q.M for q in queries])))
     parity = phase_parity(queries, targets)
-    res, launches = phase_search(queries, targets)
-    _, launches_rows = phase_search(queries, targets, device_rows=True)
-    launches["rows"] = launches_rows["rows"]
+    res, launches_off = phase_search(queries, targets)
+    _, launches_on = phase_search(queries, targets, device_rows=True)
+    # the main path of each kernel: rows off, and rows on for the rows
+    # kernel (off by default, it runs only there)
+    launches = dict(launches_off, rows=launches_on["rows"])
     phase_correctness(queries, models, targets, planted, res)
     phase_rows_correctness(queries, targets)
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    say("imports", jax_imported=False, total_s=time.time() - t0)
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "pyhmmer_tpu"))
+    if foreign:
+        fail(f"imported jax or the JAX package: {foreign[:5]}")
+    say("imports", jax_imported=False, jax_package_imported=False,
+        total_s=time.time() - t0)
     record = []
     for name, (mod, src, replaces) in KERNELS.items():
         main_case = parity[name][0]
         record.append({"name": name, "route": "cuda", "source": src,
                        "replaces": replaces, "launches": launches[name],
+                       "launches_by_path": {"rows_off": launches_off[name],
+                                            "rows_on": launches_on[name]},
                        "max_abs_err": max(r["max_abs_err"]
                                           for r in parity[name]),
                        "ms": main_case["ms"],
-                       "plain_ms": main_case["plain_ms"]})
+                       "plain_ms": main_case["plain_ms"],
+                       "bound_ms": main_case["bound_ms"],
+                       "bound_by": main_case["bound_by"],
+                       # no single PyTorch call computes these DP scans
+                       "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,20 @@ path.
 ``hmmsearch`` runs the filter cascade (MSV with the fused bias filter,
 Forward, Viterbi) as hand-written CUDA kernels on an NVIDIA Hopper GPU,
 or as their plain PyTorch versions on the CPU, and reports hits through
-the same exact host postprocessing as ``pyhmmer_tpu``, whose jax-free
-host layers (``easel``, ``plan7``, ``ops.native``) it imports.  The
-package never imports JAX.
+the same exact host postprocessing as ``pyhmmer_tpu``.  The package keeps
+its own copy of the host layers it needs (``easel``, ``plan7``,
+``ops.{native,reference,quantize}``, ``csrc/hmmdp.cpp``) and imports
+neither JAX nor any module of ``pyhmmer_tpu``.
+
+Builds, each at first use and never at import, under ``build/`` at the
+root of the checkout: the CUDA kernels (``csrc/*.cu``, nvcc for
+``sm_90a``) into ``build/torch_kernels/`` on the first launch, and the
+host DP library (``csrc/hmmdp.cpp``, g++) into ``build/torch_host/`` on
+the first native call.
+
+Tests: on the CPU, ``python -m pytest tests/test_torch_*.py`` (the GPU
+tests skip); on a card, ``python3 chip_smoke.py`` and
+``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 """
 
 __version__ = "0.1.0"

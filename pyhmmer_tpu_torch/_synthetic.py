@@ -30,10 +30,10 @@ from typing import Dict, List, Sequence, Set, Tuple
 
 import numpy as np
 
-from pyhmmer_tpu.easel.alphabet import Alphabet
-from pyhmmer_tpu.easel.sequence import DigitalSequence, DigitalSequenceBlock
-from pyhmmer_tpu.plan7.background import Background
-from pyhmmer_tpu.plan7.hmm import HMM
+from .easel.alphabet import Alphabet
+from .easel.sequence import DigitalSequence, DigitalSequenceBlock
+from .plan7.background import Background
+from .plan7.hmm import HMM
 
 #: model lengths of the smoke query stack (16 distinct models)
 SMOKE_M = (50, 70, 90, 110, 130, 150, 170, 200, 250, 320, 400, 450, 520,

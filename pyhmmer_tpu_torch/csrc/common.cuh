@@ -9,7 +9,8 @@
 // [..., S, 32] with element (j, l) holding slot l*S + j, so the warp's
 // read of one j is 32 consecutive elements.  S is a template parameter so
 // the stripe lives in registers; PYHMMER_STRIPES lists the compiled
-// widths (ops/batch.py:STRIPES must match).
+// widths (ops/batch.py:STRIPES must match).  msv.cu re-stripes its table
+// in shared memory to give narrow models 16 lanes and two targets a warp.
 #pragma once
 
 #include <cuda_runtime.h>

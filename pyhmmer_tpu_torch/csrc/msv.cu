@@ -5,89 +5,276 @@
 // launched by _msv_pallas), and the XLA scan ops/batch.py:_msv_kernel.
 //
 // Semantics: HMMER's uint8 MSV (p7_MSVFilter): 1/3-bit quantized costs,
-// base 190, E->J wing, evaluated here in exact int32 arithmetic with the
-// 255 saturation elided.  Whenever the clamp could have mattered, some row
-// maximum reached 255 - bias and the overflow flag xJ >= 255 - bias - tec
-// fires, so every unflagged dx equals the saturating DP's.  Outputs per
-// (profile, target): dx = xJ - 190, ovf (0/1) and the bias filter's log
-// score without the null term (biaslog), renormalized every 8 rows; a
+// base 190, E->J wing, with the 255 saturation elided.  Outputs per
+// (profile, target): dx = xJ - 190, ovf (0/1, set when xJ >= 255 - bias -
+// tec, i.e. whenever the clamp could have mattered) and the bias filter's
+// log score without the null term (biaslog), renormalized every 8 rows; a
 // nonresidue code (odds 0) freezes the bias state.
 //
-// Design: a block is one profile x WARPS_PER_BLOCK targets; the profile's
-// uint8 cost table [Kp][Mk] is staged once in shared memory and gathered
-// per row by residue code (no one-hot matmul).  Each warp scans its own
-// target to its own length.  Bound: ALU and dependency latency -- about
-// five integer ops per DP cell (P * B * L * Mk cells), a shuffle carry and
-// a five-step warp max per row, and few bytes.
+// Design (Hopper).  Two kernels per launch:
+//
+// * msv_kernel: one warp per (profile, target) pair, or, for models of up
+//   to 256 slots (S <= 8), 16 lanes per pair and two targets per warp, so
+//   the per-row work that does not grow with the width is shared; lane l
+//   of a pair's group holds the stripe of SL slots l*SL .. l*SL+SL-1 (SL
+//   = S, or 2S with 16 lanes).  The table is stored pre-biased, w = bias
+//   - cost (ops/batch.py:msv_w16), and staged in shared memory as 16-bit
+//   pairs: word r of a lane holds slots r and r + SL/2 of its stripe (an
+//   odd SL keeps its last slot alone in the high half of one more word),
+//   so a pair's predecessor is the previous pair, the odd slot's is the
+//   high half of the last pair, and only pair 0 needs one byte permute of
+//   the stripe edge.  Each word is updated by two DPX
+//   instructions, max(max(prev, xBv) + w, 0) =
+//   __viaddmax_s16x2(__vimax_s16x2_relu(prev, xBv), w, 0), and the row
+//   maximum is folded as a tree of __vimax3_s16x2_relu.  Instead of a
+//   five-step shuffle reduction per row, one ballot asks whether some
+//   lane's maximum exceeds xJ + tec (one packed max against xJ + tec in
+//   both halves); only then (xJ is monotone, so this is exact) does
+//   __reduce_max_sync give the row maximum and xJ, xB change.  The next
+//   row's codes and table words are loaded before the current row's DP
+//   (SL <= 32), off the dependency chain.
+// * bias_kernel: the 2-state bias recurrence, one thread per pair (it is a
+//   scalar recurrence), with the float operations of the fused scan in the
+//   same order.
+//
+// The engine launches the long buckets' scans (a few warps each, latency
+// bound) on side streams, so they overlap the short buckets.
+//
+// Why 16 bits cannot wrap before ovf fires: while ovf has not fired, every
+// row maximum is below 255 - bias and xB = max(190, xJ) - tj is below 255,
+// so every cell of the next row, max(prev, xBv) + w with w <= bias, is
+// below 255 + bias <= 510, far from 32,767: the cells, row maxima, xJ and
+// hence ovf are exact up to and including the row on which ovf fires.
+// From there on xJ (int32) is monotone, so ovf stays set, and the engine
+// ignores dx of a flagged pair (engine.py: usc = inf where ovf): there the
+// 16-bit cells may wrap and dx may differ from the int32 plain version.
+// xBv and xJ + tec are clamped to 32,767 before they are packed.
+//
+// Bound on this card: integer issue -- HMMER's 4 operations per cell on
+// 16-bit pairs, about 1.75 instructions per pair of cells here, plus the
+// per-row work (P * B * L * Mk cells); bytes are few.  The TPU kernels
+// cover the stripe edge with a roll and padding rows; here it is one
+// __shfl_up_sync and one __byte_perm per row.  cuobjdump -sass of the
+// sm_90a build shows the intrinsics as DPX instructions, not emulated:
+// VIADDMNMX.S16x2, VIMNMX.S16x2.RELU and VIMNMX3.S16x2.RELU in every
+// msv_kernel<S>, beside REDUX.MAX.S32, VOTE.ANY and PRMT.
+
+#include <algorithm>
 
 #include "common.cuh"
+
+// dynamic shared memory a block may use on sm_90
+constexpr int MSV_SMEM_MAX = 232448;
+constexpr int BIAS_THREADS = 64;
+
+// Lanes per (profile, target) pair: 32 / groups_for(S).  A model of up to
+// 256 slots shares a warp between two targets, 16 lanes each, so the
+// per-row work that does not grow with the width (code broadcast, stripe
+// edge, vote, loop) is paid once for two rows.
+__host__ __device__ constexpr int groups_for(int S) { return S <= 8 ? 2 : 1; }
+
+// The packed word r of lane l (of a group of 32 / G lanes, SL = S * G
+// slots each) for residue code x: slots r and r + SL/2 of the lane's
+// stripe, read from the 32-lane table g [Kp][S][32] (slot k at
+// (k % S, k / S)); for odd SL, word SL/2 holds the last slot in its high
+// half and -32768 in its low half, which the clamp at 0 keeps at 0.
+template <int S, int SL>
+__device__ __forceinline__ uint32_t pair_word(const int16_t* g, int x, int r,
+                                              int l) {
+  const int16_t* row = g + (size_t)x * S * 32;
+  auto slot = [&](int j) {
+    const int k = l * SL + j;
+    return (uint32_t)(uint16_t)row[(k % S) * 32 + k / S];
+  };
+  if (r < SL / 2) return slot(r) | (slot(r + SL / 2) << 16);
+  return 0x8000u | (slot(SL - 1) << 16);
+}
+
+// the 16-bit maximum of n packed words, folded as a tree of 3-way maxima
+template <int N>
+__device__ __forceinline__ uint32_t fold_max(const uint32_t* v) {
+  if constexpr (N == 1) {
+    return v[0];
+  } else if constexpr (N == 2) {
+    return __vimax_s16x2_relu(v[0], v[1]);
+  } else {
+    constexpr int A = N / 3, B = (N - A) / 2;
+    return __vimax3_s16x2_relu(fold_max<A>(v), fold_max<B>(v + A),
+                               fold_max<N - A - B>(v + A + B));
+  }
+}
 
 template <int S>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 msv_kernel(const uint8_t* __restrict__ codes, int Lmax,
            const int* __restrict__ lens,
-           const uint8_t* __restrict__ cost,  // [P, Kp, S, 32]
-           const float* __restrict__ scal,    // [P, 4] bias, tec, tbm, -
-           const float* __restrict__ odds,    // [P, Kp]
-           const float* __restrict__ tjb,     // [B]
-           const float* __restrict__ p1,      // [B]
-           int B, int Kp, float* __restrict__ dx, float* __restrict__ ovf,
-           float* __restrict__ biaslog) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* od = reinterpret_cast<float*>(smem);  // 32 floats
-  uint8_t* cs = smem + 32 * sizeof(float);
+           const int16_t* __restrict__ w16,  // [P, Kp, S, 32] bias - cost
+           const float* __restrict__ scal,   // [P, 4] bias, tec, tbm, -
+           const float* __restrict__ tjb,    // [B]
+           int B, int Kp, int Ks, float* __restrict__ dx,
+           float* __restrict__ ovf) {
+  constexpr int G = groups_for(S);  // targets per warp
+  constexpr int W = 32 / G;         // lanes per target
+  constexpr int SL = S * G;         // slots per lane
+  constexpr int H = SL / 2;
+  constexpr bool ODD = (SL & 1) != 0;
+  constexpr int R = H + (ODD ? 1 : 0);
+  constexpr bool PREFETCH = R <= 16;
+  // codes >= Ks (only at S = 128, where Kp rows do not fit) read global
+  constexpr bool SPILL = S >= 128;
+  // [Ks][R][32]: each group's W-lane words, repeated for every group, so
+  // the groups' reads of two table rows fall on distinct banks
+  extern __shared__ __align__(16) uint32_t tab[];
   const int p = blockIdx.y;
-  const int words = Kp * S * 8;  // Kp * S * 32 bytes
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(cost) + (size_t)p * words;
-  uint32_t* dst = reinterpret_cast<uint32_t*>(cs);
-  for (int t = threadIdx.x; t < words; t += blockDim.x) dst[t] = src[t];
-  if (threadIdx.x < 32)
-    od[threadIdx.x] = threadIdx.x < Kp ? odds[p * Kp + threadIdx.x] : 0.f;
+  const int16_t* g = w16 + (size_t)p * Kp * S * 32;
+  for (int t = threadIdx.x; t < Ks * R * 32; t += blockDim.x)
+    tab[t] = pair_word<S, SL>(g, t / (R * 32), (t >> 5) % R, t % W);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (b >= B) return;  // the whole warp leaves together
+  const int hl = lane % W;  // lane within the target's group
+  const int b0 = (blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5)) * G;
+  if (b0 >= B) return;  // the whole warp leaves together
+  const int b = b0 + lane / W;
+  const bool valid = b < B;
 
   const int bias = (int)scal[p * 4 + 0];
   const int tec = (int)scal[p * 4 + 1];
   const int tbm = (int)scal[p * 4 + 2];
-  const int tj = (int)tjb[b];
+  const int tj = valid ? (int)tjb[b] : 0;
+  const int L = valid ? lens[b] : 0;
+  int Lrun = L;  // the warp runs to its longest target
+#pragma unroll
+  for (int o = W; o < 32; o <<= 1)
+    Lrun = max(Lrun, __shfl_xor_sync(FULL_MASK, Lrun, o));
+
+  uint32_t m[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) m[q] = 0u;
+  int xJ = 0;
+  uint32_t xb2 = (uint32_t)min(max(max(190 - tj, 0) - tbm, 0), 32767) *
+                 0x10001u;
+  // xJ + tec in both halves: a row changes xJ iff some cell exceeds it
+  uint32_t thr2 = (uint32_t)min(tec, 32767) * 0x10001u;
+
+  auto load = [&](int x, uint32_t* w) {
+    if (SPILL && x >= Ks) {  // (S = 128 only)
+#pragma unroll
+      for (int q = 0; q < R; ++q) w[q] = pair_word<S, SL>(g, x, q, hl);
+    } else {
+      const uint32_t* row = tab + x * (R * 32) + lane;
+#pragma unroll
+      for (int q = 0; q < R; ++q) w[q] = row[q * 32];
+    }
+  };
+
+  const uint8_t* seq = codes + (size_t)(valid ? b : b0) * Lmax;
+  uint32_t w[R];
+  for (int i0 = 0; i0 < Lrun; i0 += W) {
+    const int nr = min(W, Lrun - i0);
+    // past its own length a target reads code 0 and stops voting
+    const int mycode = i0 + hl < L ? (int)seq[i0 + hl] : 0;
+    if constexpr (PREFETCH) load(__shfl_sync(FULL_MASK, mycode, 0, W), w);
+    for (int r = 0; r < nr; ++r) {
+      uint32_t wn[R];
+      if constexpr (PREFETCH)
+        load(__shfl_sync(FULL_MASK, mycode, (r + 1) % W, W), wn);
+      else
+        load(__shfl_sync(FULL_MASK, mycode, r, W), w);
+
+      // the high half of the last word is slot SL-1 for every SL
+      uint32_t up = __shfl_up_sync(FULL_MASK, m[R - 1], 1, W);
+      if (hl == 0) up = 0u;  // slot 0 enters from B only (xBv >= 0)
+      // pair 0: low half from the previous lane's slot SL-1, high half
+      // from this lane's slot H-1
+      const uint32_t edge = H ? __byte_perm(up, m[H > 0 ? H - 1 : 0], 0x5432)
+                              : 0u;
+      if constexpr (ODD)  // slot SL-1 takes slot SL-2, pair H-1's high half
+        m[H] = __viaddmax_s16x2(__vimax_s16x2_relu(H ? m[H > 0 ? H - 1 : 0]
+                                                     : up,
+                                                   xb2),
+                                w[H], 0u);
+#pragma unroll
+      for (int q = H - 1; q >= 1; --q)
+        m[q] = __viaddmax_s16x2(__vimax_s16x2_relu(m[q - 1], xb2), w[q], 0u);
+      if constexpr (H > 0)
+        m[0] = __viaddmax_s16x2(__vimax_s16x2_relu(edge, xb2), w[0], 0u);
+      const uint32_t mx2 = fold_max<R>(m);
+      bool exceeds = __vimax_s16x2_relu(mx2, thr2) != thr2;
+      if constexpr (G > 1) exceeds = exceeds && i0 + r < L;
+      const unsigned vote = __ballot_sync(FULL_MASK, exceeds);
+      if (vote) {
+        const int lmax = max((int)(int16_t)(mx2 & 0xffffu),
+                             (int)(int16_t)(mx2 >> 16));
+        int gmax = 0;
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          const int v = __reduce_max_sync(
+              FULL_MASK, lane / W == k ? lmax : -32768);
+          if (lane / W == k) gmax = v;
+        }
+        unsigned mine = vote;  // this target's lanes' votes
+        if constexpr (G > 1)
+          mine = (vote >> (lane / W * W)) & ((1u << W) - 1u);
+        if (mine) {
+          xJ = max(xJ, gmax - tec);
+          const int xB = max(190, xJ) - tj;
+          xb2 = (uint32_t)min(max(xB - tbm, 0), 32767) * 0x10001u;
+          thr2 = (uint32_t)min(xJ + tec, 32767) * 0x10001u;
+        }
+      }
+      if constexpr (PREFETCH) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) w[q] = wn[q];
+      }
+    }
+  }
+  if (hl == 0 && valid) {
+    const size_t o = (size_t)p * B + b;
+    dx[o] = (float)(xJ - 190);
+    ovf[o] = xJ >= 255 - bias - tec ? 1.f : 0.f;
+  }
+}
+
+// The bias filter's 2-state scan: one thread per (profile, target) pair;
+// a block is one target x BIAS_THREADS profiles, every thread reading the
+// same code and its own profile's odds ([Kp][BIAS_THREADS] in shared
+// memory).  The float operations are those of the fused scan, in order.
+__global__ void __launch_bounds__(BIAS_THREADS)
+bias_kernel(const uint8_t* __restrict__ codes, int Lmax,
+            const int* __restrict__ lens,
+            const float* __restrict__ odds,  // [P, Kp]
+            const float* __restrict__ p1,    // [B]
+            int B, int P, int Kp, float* __restrict__ biaslog) {
+  __shared__ float od[32 * BIAS_THREADS];
+  const int b = blockIdx.x;
+  const int p0 = blockIdx.y * BIAS_THREADS;
+  for (int t = threadIdx.x; t < 32 * BIAS_THREADS; t += BIAS_THREADS) {
+    const int x = t / BIAS_THREADS, q = p0 + t % BIAS_THREADS;
+    od[t] = (x < Kp && q < P) ? odds[q * Kp + x] : 0.f;
+  }
+  __syncthreads();
+  const int p = p0 + threadIdx.x;
+  if (p >= P) return;
+
   const int L = lens[b];
   const float t00 = p1[b], t01 = 1.f - t00;
   const float t11 = 50.f / 51.f, t10 = 1.f / 51.f;
-
-  int m[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) m[j] = 0;
-  int xJ = 0, xB = max(190 - tj, 0);
   float a0 = 1.f, a1 = 0.f, lsc = 0.f;
   bool started = false;
-
   const uint8_t* seq = codes + (size_t)b * Lmax;
-  for (int i0 = 0; i0 < L; i0 += 32) {
-    const int nr = min(32, L - i0);
-    const int mycode = lane < nr ? (int)seq[i0 + lane] : 0;
-    for (int r = 0; r < nr; ++r) {
-      const int x = __shfl_sync(FULL_MASK, mycode, r);
-      const int xBv = max(xB - tbm, 0);
-      int carry = __shfl_up_sync(FULL_MASK, m[S - 1], 1);
-      if (lane == 0) carry = 0;  // slot 0 enters from B only (xBv >= 0)
-      const uint8_t* c = cs + x * (S * 32) + lane;
-      int mx = 0;
+  for (int i0 = 0; i0 < L; i0 += 8) {
+    // the 8 rows' odds first, off the recurrence's chain (0 past L: no
+    // update, as at a nonresidue code)
+    float ovs[8];
 #pragma unroll
-      for (int j = S - 1; j >= 0; --j) {
-        const int prev = j ? m[j - 1] : carry;
-        const int sv = max(max(prev, xBv) + bias - (int)c[j * 32], 0);
-        m[j] = sv;
-        mx = max(mx, sv);
-      }
-      mx = warp_max_i(mx);
-      xJ = max(xJ, mx - tec);
-      xB = max(190, xJ) - tj;
-
-      const float ov = od[x];
+    for (int k = 0; k < 8; ++k)
+      ovs[k] = i0 + k < L
+                   ? od[(int)seq[i0 + k] * BIAS_THREADS + threadIdx.x]
+                   : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float ov = ovs[k];
       if (ov > 0.f) {
         float na0, na1;
         if (!started) {
@@ -101,56 +288,62 @@ msv_kernel(const uint8_t* __restrict__ codes, int Lmax,
         a0 = na0;
         a1 = na1;
       }
-      if (((i0 + r + 1) & 7) == 0) {
-        const float s = a0 + a1;
-        lsc += logf(s);
-        const float inv = 1.f / s;
-        a0 *= inv;
-        a1 *= inv;
-      }
+    }
+    if (i0 + 8 <= L) {
+      const float s = a0 + a1;
+      lsc += logf(s);
+      const float inv = 1.f / s;
+      a0 *= inv;
+      a1 *= inv;
     }
   }
-  if (lane == 0) {
-    const size_t o = (size_t)p * B + b;
-    dx[o] = (float)(xJ - 190);
-    ovf[o] = xJ >= 255 - bias - tec ? 1.f : 0.f;
-    biaslog[o] = lsc + logf(a0 + a1);
-  }
+  biaslog[(size_t)p * B + b] = lsc + logf(a0 + a1);
 }
 
 template <int S>
 static int launch_msv(const void* codes, int Lmax, const void* lens,
-                      const void* cost, const void* scal, const void* odds,
-                      const void* tjb, const void* p1, int B, int P, int Kp,
-                      void* dx, void* ovf, void* biaslog,
+                      const void* w16, const void* scal, const void* tjb,
+                      int B, int P, int Kp, void* dx, void* ovf,
                       cudaStream_t stream) {
-  const size_t smem = 32 * sizeof(float) + (size_t)Kp * S * 32;
+  constexpr int SL = S * groups_for(S);
+  constexpr int R = SL / 2 + (SL & 1);
+  const int Ks = std::min(Kp, MSV_SMEM_MAX / (R * 32 * 4));
+  if (Ks < Kp && S < 128) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)Ks * R * 32 * 4;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         msv_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((B + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK, P);
+  constexpr int per_block = WARPS_PER_BLOCK * groups_for(S);
+  dim3 grid((B + per_block - 1) / per_block, P);
   msv_kernel<S><<<grid, 32 * WARPS_PER_BLOCK, smem, stream>>>(
-      (const uint8_t*)codes, Lmax, (const int*)lens, (const uint8_t*)cost,
-      (const float*)scal, (const float*)odds, (const float*)tjb,
-      (const float*)p1, B, Kp, (float*)dx, (float*)ovf, (float*)biaslog);
+      (const uint8_t*)codes, Lmax, (const int*)lens, (const int16_t*)w16,
+      (const float*)scal, (const float*)tjb, B, Kp, Ks, (float*)dx,
+      (float*)ovf);
   return (int)cudaGetLastError();
 }
 
 extern "C" int msv_launch(const void* codes, int Lmax, const void* lens,
-                          const void* cost, const void* scal,
+                          const void* w16, const void* scal,
                           const void* odds, const void* tjb, const void* p1,
                           int B, int P, int Kp, int S, void* dx, void* ovf,
                           void* biaslog, void* stream) {
   if (B <= 0 || P <= 0) return 0;
   if (Kp > 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 bgrid(B, (P + BIAS_THREADS - 1) / BIAS_THREADS);
+  bias_kernel<<<bgrid, BIAS_THREADS, 0, st>>>(
+      (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)odds,
+      (const float*)p1, B, P, Kp, (float*)biaslog);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   switch (S) {
-#define PYHMMER_CASE(s)                                                   \
-  case s:                                                                 \
-    return launch_msv<s>(codes, Lmax, lens, cost, scal, odds, tjb, p1, B, \
-                         P, Kp, dx, ovf, biaslog, (cudaStream_t)stream);
+#define PYHMMER_CASE(s)                                                    \
+  case s:                                                                  \
+    return launch_msv<s>(codes, Lmax, lens, w16, scal, tjb, B, P, Kp, dx, \
+                         ovf, st);
     PYHMMER_STRIPES(PYHMMER_CASE)
 #undef PYHMMER_CASE
     default:

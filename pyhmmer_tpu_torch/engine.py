@@ -4,12 +4,14 @@ domain machinery on the host.
 The port of ``pyhmmer_tpu/engine.py``.  The cascade runs three device
 stages over stacks of profiles x length buckets of targets, each followed
 by host gating, and hands the final survivors to the exact float64 native
-postprocessing (``pyhmmer_tpu.ops.native``), so the reported hits are
-the sequential oracle pipeline's:
+postprocessing (``ops/native.py``, the port's copy of the JAX
+package's host library), so the reported hits are the sequential oracle
+pipeline's:
 
 1. MSV with the bias filter fused in, for every (profile chunk x bucket)
-   (``ops/msv_cuda.py``); the exact host bias filter re-checks the pairs
-   near the gate;
+   (``ops/msv_cuda.py``), the long buckets' launches first, each on a
+   side stream of its own; the exact host bias filter re-checks the
+   pairs near the gate;
 2. Forward on the bias survivors (``ops/fwd_cuda.py``);
 3. Viterbi on the Forward survivors whose MSV P-value did not already
    let them skip it (``ops/vit_cuda.py``).
@@ -37,20 +39,18 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from pyhmmer_tpu.easel.alphabet import Alphabet
-from pyhmmer_tpu.easel.sequence import DigitalSequenceBlock
-from pyhmmer_tpu.ops import native as _native
-from pyhmmer_tpu.ops import reference as refops
-from pyhmmer_tpu.plan7.background import Background
-from pyhmmer_tpu.plan7.evalues import exp_surv, gumbel_invsurv, gumbel_surv
-from pyhmmer_tpu.plan7.hmm import HMM
-from pyhmmer_tpu.plan7.pipeline import (F2_SKIP_SLACK, F3_SLACK, LOG2,
-                                        Pipeline)
-from pyhmmer_tpu.plan7.profile import Profile
-from pyhmmer_tpu.plan7.results import TopHits
-
+from .easel.alphabet import Alphabet
+from .easel.sequence import DigitalSequenceBlock
 from .ops import batch as B
 from .ops import fwd_cuda, msv_cuda, rows_cuda, vit_cuda
+from .ops import native as _native
+from .ops import reference as refops
+from .plan7.background import Background
+from .plan7.evalues import exp_surv, gumbel_invsurv, gumbel_surv
+from .plan7.hmm import HMM
+from .plan7.pipeline import F2_SKIP_SLACK, F3_SLACK, LOG2, Pipeline
+from .plan7.profile import Profile
+from .plan7.results import TopHits
 
 __all__ = ["SearchEngine"]
 
@@ -72,6 +72,8 @@ HOST_PAIRS_PER_ROW = 6e-4
 #: engine's limits, ``pyhmmer_tpu/engine.py:692-698``)
 ROWS_MAX_L = 2048
 ROWS_MAX_MP = 768
+#: buckets with a longer Lmax launch their MSV scans on side streams
+LONG_BUCKET = 2048
 
 
 def resolve_device(device) -> torch.device:
@@ -133,10 +135,15 @@ def group_queries(queries: Sequence[HMM]) -> dict:
 
 def _fetch_all(parts: List[torch.Tensor]) -> List[np.ndarray]:
     """Bring many device tensors back with one concatenation and one
-    device-to-host copy."""
+    device-to-host copy (into pinned memory when they are on a CUDA
+    device: a pageable copy runs at a fraction of the link's rate)."""
     if not parts:
         return []
-    buf = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    if flat.is_cuda:
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        flat = host.copy_(flat)
+    buf = flat.numpy()
     out, off = [], 0
     for p in parts:
         n = p.numel()
@@ -228,7 +235,14 @@ class SearchEngine:
         self.device_rows = bool(device_rows)
         self.options = pipeline_options
         self._model_cache: dict = {}
+        self._streams: List[torch.cuda.Stream] = []
         self.last_timing: dict = {}
+
+    def _side_stream(self, k: int) -> "torch.cuda.Stream":
+        """The engine's ``k``-th side stream (created on first use)."""
+        while len(self._streams) <= k:
+            self._streams.append(torch.cuda.Stream(self.device))
+        return self._streams[k]
 
     def _survivors(self, rows, need):
         """Bucket rows [n] and the ``need`` mask [P, n] of a survivor
@@ -398,13 +412,32 @@ class SearchEngine:
                 pending.append((job, fut, spec))
 
         # -- stage 1 (device): MSV + fused bias for every chunk x bucket --
+        # on a CUDA device every long-bucket launch (a few warps, a long
+        # serial scan) goes first, each on a side stream of its own, so
+        # they run at once and overlap the short buckets
+        s1_keys = [(ci, bi) for ci in range(len(states))
+                   for bi in range(len(buckets.buckets))]
+        s1_out = {}
+        side = []
+        for ci, bi in s1_keys:
+            dev = buckets.buckets[bi][3]
+            if self.device.type == "cuda" and dev.Lmax > LONG_BUCKET:
+                s = self._side_stream(len(side))
+                s.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(s):
+                    s1_out[(ci, bi)] = msv_cuda.msv(states[ci].pb, dev)
+                side.append(s)
+        for ci, bi in s1_keys:
+            if (ci, bi) not in s1_out:
+                s1_out[(ci, bi)] = msv_cuda.msv(states[ci].pb,
+                                                buckets.buckets[bi][3])
+        for s in side:
+            torch.cuda.current_stream(self.device).wait_stream(s)
         s1_parts = []
-        s1_pairs = []   # (ci, bi, part offset)
-        for ci, st in enumerate(states):
-            for bi, bucket in enumerate(buckets.buckets):
-                dx, ovf, biaslog = msv_cuda.msv(st.pb, bucket[3])
-                s1_pairs.append((ci, bi, len(s1_parts)))
-                s1_parts.extend((dx, ovf, biaslog))
+        s1_pairs = []   # (ci, bi, part offset), in (chunk, bucket) order
+        for ci, bi in s1_keys:
+            s1_pairs.append((ci, bi, len(s1_parts)))
+            s1_parts.extend(s1_out[(ci, bi)])
         mark("s1_enqueued")
 
         # -- stage 1 (host): MSV gate, then the exact bias filter on the

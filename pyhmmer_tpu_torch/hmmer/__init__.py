@@ -5,14 +5,36 @@ from __future__ import annotations
 
 from typing import Iterator, Optional
 
-from pyhmmer_tpu.easel.seqfile import SequenceFile
-from pyhmmer_tpu.easel.sequence import DigitalSequenceBlock
-from pyhmmer_tpu.hmmer import _query_list, _target_block
-from pyhmmer_tpu.plan7.results import TopHits
-
+from ..easel.alphabet import Alphabet
+from ..easel.seqfile import SequenceFile
+from ..easel.sequence import DigitalSequenceBlock
 from ..engine import SearchEngine, resolve_device
+from ..plan7.hmm import HMM
+from ..plan7.results import TopHits
 
 __all__ = ["hmmsearch"]
+
+
+# _target_block and _query_list: pyhmmer_tpu/hmmer/__init__.py:40-59,
+# without the HMMFile case (the port reads no HMM files)
+def _target_block(sequences, alphabet: Optional[Alphabet] = None
+                  ) -> DigitalSequenceBlock:
+    if isinstance(sequences, DigitalSequenceBlock):
+        return sequences
+    if isinstance(sequences, SequenceFile):
+        if not sequences.digital:
+            raise ValueError("expected digital mode SequenceFile")
+        return sequences.read_block()
+    seqs = list(sequences)
+    if not seqs:
+        raise ValueError("no target sequences")
+    return DigitalSequenceBlock(seqs[0].alphabet, seqs)
+
+
+def _query_list(queries):
+    if isinstance(queries, (HMM,)):
+        return [queries]
+    return list(queries)
 
 
 def hmmsearch(queries, sequences, *, device="cuda", callback=None,

@@ -43,7 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points and their argument types (all return an int error code)
 SIGNATURES = {
-    # codes, Lmax, lens, cost8, scal, odds, tjb, p1, B, P, Kp, S,
+    # codes, Lmax, lens, w16, scal, odds, tjb, p1, B, P, Kp, S,
     # dx, ovf, biaslog, stream
     "msv_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _P, _P, _P, _P],

@@ -9,9 +9,10 @@ warp lane, see ``stripe_width``) and stored striped, ``[..., S, 32]``
 with element ``(j, l)`` holding slot ``l * S + j`` (:func:`striped`), so
 warp lane ``l`` reads its ``S`` slots with coalesced loads:
 
-* ``msv_cost8`` [P, Kp, S, 32] uint8 quantized costs (255 in padding),
-  ``msv_scal`` [P, 4] (bias, tec, tbm, 0), ``msv_odds`` [P, Kp]
-  bias-filter odds with 0 at the nonresidue code;
+* ``msv_w16`` [P, Kp, S, 32] int16, the quantized costs pre-biased,
+  ``bias - cost`` (cost 255 in padding), ``msv_scal`` [P, 4] (bias, tec,
+  tbm, 0), ``msv_odds`` [P, Kp] bias-filter odds with 0 at the
+  nonresidue code;
 * ``vit_msc`` / ``vit_isc`` [P, Kp, S, 32] log emission scores and
   ``vit_tr`` [P, 8, S, 32] log transitions per model slot (slot ``s`` is
   state ``k = s + 1``): 0 M->M, 1 I->M, 2 D->M into the slot from slot
@@ -33,7 +34,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from pyhmmer_tpu.ops.quantize import quantize_msv, tjb_units
+from ..easel.alphabet import Alphabet
+from ..easel.sequence import DigitalSequence, DigitalSequenceBlock
+from ..plan7.background import Background
+from ..plan7.hmm import HMM
+from .quantize import quantize_msv, tjb_units
 
 NEGMASS = -1e30
 
@@ -106,7 +111,6 @@ def pack_profiles(profiles: Sequence, Mp: Optional[int] = None) -> dict:
     out["msv_tbm"] = np.array([q.tbm_b for q in quants], dtype=np.float32)
     out["scale_b"] = quants[0].scale_b
 
-    from pyhmmer_tpu.plan7.background import Background
     odds = np.ones((P, Kp), dtype=np.float32)
     for i, p in enumerate(profiles):
         if p.compo is None:
@@ -150,8 +154,9 @@ def kernel_tables(f: dict) -> dict:
     Mk = 32 * stripe_width(Mp)
     nonres = Kp - 2                   # Easel: '*' sits just below '~'
 
-    cost = np.full((P, Kp, Mk), 255, dtype=np.uint8)
-    cost[:, :, :Mp] = f["msv_cost"].astype(np.uint8)
+    cost = np.full((P, Kp, Mk), 255, dtype=np.int16)
+    cost[:, :, :Mp] = f["msv_cost"]
+    w16 = f["msv_bias"].astype(np.int16)[:, None, None] - cost
     scal = np.zeros((P, 4), dtype=np.float32)
     scal[:, 0] = f["msv_bias"]
     scal[:, 1] = f["msv_tec"]
@@ -178,7 +183,7 @@ def kernel_tables(f: dict) -> dict:
     tr = np.maximum(tr, NEGMASS)
 
     s = np.ascontiguousarray
-    return {"msv_cost8": s(striped(cost)), "msv_scal": scal,
+    return {"msv_w16": s(striped(w16)), "msv_scal": scal,
             "msv_odds": odds, "vit_msc": s(striped(msc)),
             "vit_isc": s(striped(isc)), "vit_tr": s(striped(tr)),
             "fwd_ems": s(striped(_xexp(msc))),
@@ -211,7 +216,7 @@ class ProfileBatch(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.msv_cost8.device
+        return self.msv_w16.device
 
     def arrays(self) -> dict:
         """The shared fields as numpy arrays (plus ``Mp``/``Kp``/
@@ -236,6 +241,65 @@ def profile_batch_from_arrays(d: dict) -> ProfileBatch:
     arrays["Kp"] = int(d.get("Kp", Kp))
     arrays["scale_b"] = float(d["scale_b"])
     return ProfileBatch(arrays=arrays)
+
+
+#: the profile-HMM fields :func:`hmm_arrays` carries besides the
+#: alphabet's type code and ``M``
+HMM_FIELDS = ("name", "t", "mat", "ins", "evparam", "cutoffs",
+              "composition", "flags", "accession", "description",
+              "consensus", "consensus_structure", "max_length")
+
+
+def hmm_arrays(hmm) -> dict:
+    """A profile HMM's fields (:data:`HMM_FIELDS`) as numpy arrays and
+    plain values, plus ``alphabet`` (the type code) and ``M``: the
+    inverse of :func:`hmm_from_arrays`."""
+    d = {"alphabet": int(hmm.alphabet.type), "M": int(hmm.M)}
+    for name in HMM_FIELDS:
+        v = getattr(hmm, name)
+        d[name] = np.array(v) if isinstance(v, np.ndarray) else v
+    return d
+
+
+def hmm_from_arrays(d: dict) -> HMM:
+    """The port's ``HMM`` from the fields of :func:`hmm_arrays`, so the
+    port and the JAX package can be fed the same model."""
+    hmm = HMM(Alphabet.from_type(int(d["alphabet"])), int(d["M"]),
+              name=bytes(d["name"]))
+    hmm.t[...] = d["t"]
+    hmm.mat[...] = d["mat"]
+    hmm.ins[...] = d["ins"]
+    hmm.evparam[:] = d["evparam"]
+    hmm.cutoffs[:] = d["cutoffs"]
+    if d["composition"] is not None:
+        hmm.composition = np.array(d["composition"], dtype=np.float32)
+    hmm.flags = int(d["flags"])
+    for name in ("accession", "description", "consensus",
+                 "consensus_structure", "max_length"):
+        setattr(hmm, name, d[name])
+    return hmm
+
+
+def block_arrays(block) -> dict:
+    """A digital sequence block as the alphabet's type code and, per
+    sequence, its name, accession, description and uint8 codes: the
+    inverse of :func:`block_from_arrays`."""
+    return {"alphabet": int(block.alphabet.type),
+            "names": [bytes(s.name) for s in block],
+            "accessions": [bytes(s.accession) for s in block],
+            "descriptions": [bytes(s.description) for s in block],
+            "sequences": [np.array(s.sequence, np.uint8) for s in block]}
+
+
+def block_from_arrays(d: dict) -> DigitalSequenceBlock:
+    """The port's ``DigitalSequenceBlock`` from :func:`block_arrays`'
+    fields."""
+    alphabet = Alphabet.from_type(int(d["alphabet"]))
+    return DigitalSequenceBlock(alphabet, [
+        DigitalSequence(alphabet, name=n, accession=a, description=s,
+                        sequence=q)
+        for n, a, s, q in zip(d["names"], d["accessions"],
+                              d["descriptions"], d["sequences"])])
 
 
 class SeqDevice:

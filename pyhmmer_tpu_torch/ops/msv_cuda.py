@@ -6,7 +6,10 @@ It replaces the TPU kernels ``pyhmmer_tpu/ops/msv_pallas.py``
 (``_msv_pallas2`` and ``_msv_pallas``).  Outputs, each [P, B] f32:
 ``dx = xJ - 190`` (exact integers), ``ovf`` (1 where the uint8 DP would
 have saturated) and ``biaslog`` (the bias filter's log score without the
-null term), with the same meaning as the Pallas outputs.
+null term), with the same meaning as the Pallas outputs.  The kernel
+keeps its cells in 16 bits: ``ovf`` is the plain version's everywhere and
+``dx`` on every pair it does not flag (a flagged pair's ``dx`` is
+ignored by the engine; see the note in ``csrc/msv.cu``).
 """
 
 from __future__ import annotations
@@ -28,42 +31,42 @@ RENORM = 8
 def msv(pb: ProfileBatch, seq: SeqDevice):
     """(dx, ovf, biaslog) [P, B] for every profile of ``pb`` against
     every target of ``seq``."""
-    return msv_scores(seq.codes, seq.lens, pb.msv_cost8, pb.msv_scal,
+    return msv_scores(seq.codes, seq.lens, pb.msv_w16, pb.msv_scal,
                       pb.msv_odds, seq.tjb, seq.p1)
 
 
-def _check(codes, lens, cost8, scal, odds, tjb, p1):
+def _check(codes, lens, w16, scal, odds, tjb, p1):
     B = codes.shape[0]
-    P, Kp = cost8.shape[:2]
+    P, Kp = w16.shape[:2]
     _pairs.check_tensors({"codes": (codes, torch.uint8, None),
                           "lens": (lens, torch.int32, (B,)),
-                          "cost8": (cost8, torch.uint8, None),
+                          "w16": (w16, torch.int16, None),
                           "scal": (scal, torch.float32, (P, 4)),
                           "odds": (odds, torch.float32, (P, Kp)),
                           "tjb": (tjb, torch.float32, (B,)),
-                          "p1": (p1, torch.float32, (B,))}, cost8)
+                          "p1": (p1, torch.float32, (B,))}, w16)
 
 
-def msv_scores(codes, lens, cost8, scal, odds, tjb, p1):
-    """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``cost8`` [P, Kp,
-    S, 32] uint8 quantized costs, striped (255 in padding); ``scal`` [P,
-    4] (bias, tec, tbm, -); ``odds`` [P, Kp] bias-filter odds (0 at the
-    nonresidue code); ``tjb``, ``p1`` [B] f32.  Returns (dx, ovf,
-    biaslog) [P, B]."""
-    _check(codes, lens, cost8, scal, odds, tjb, p1)
+def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
+    """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``w16`` [P, Kp, S,
+    32] int16 pre-biased quantized costs ``bias - cost``, striped (cost
+    255 in padding); ``scal`` [P, 4] (bias, tec, tbm, -); ``odds`` [P, Kp]
+    bias-filter odds (0 at the nonresidue code); ``tjb``, ``p1`` [B] f32.
+    Returns (dx, ovf, biaslog) [P, B]."""
+    _check(codes, lens, w16, scal, odds, tjb, p1)
     if codes.device.type == "cpu":
-        return msv_plain(codes, lens, cost8, scal, odds, tjb, p1)
+        return msv_plain(codes, lens, w16, scal, odds, tjb, p1)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     global launches
     B, Lmax = codes.shape
-    P, Kp, S, _ = cost8.shape
+    P, Kp, S, _ = w16.shape
     dx = torch.empty((P, B), dtype=torch.float32, device=codes.device)
     ovf = torch.empty_like(dx)
     biaslog = torch.empty_like(dx)
     P_ = _build.ptr
     err = _build.lib().msv_launch(
-        P_(codes), Lmax, P_(lens), P_(cost8), P_(scal), P_(odds), P_(tjb),
+        P_(codes), Lmax, P_(lens), P_(w16), P_(scal), P_(odds), P_(tjb),
         P_(p1), B, P, Kp, S, P_(dx), P_(ovf), P_(biaslog),
         _build.stream_ptr(codes))
     _build.check(err, "msv_launch")
@@ -71,14 +74,14 @@ def msv_scores(codes, lens, cost8, scal, odds, tjb, p1):
     return dx, ovf, biaslog
 
 
-def msv_plain(codes, lens, cost8, scal, odds, tjb, p1):
+def msv_plain(codes, lens, w16, scal, odds, tjb, p1):
     """The MSV + bias scan of ``csrc/msv.cu`` in plain PyTorch, batched
     over [P, B, Mk] with a loop over sequence rows (integer-valued f32,
-    exact)."""
+    exact, no 16-bit limit)."""
     dev = codes.device
     B = codes.shape[0]
-    cost = unstriped(cost8).to(torch.float32)     # [P, Kp, Mk]
-    P, Kp, Mk = cost.shape
+    w = unstriped(w16).to(torch.float32)          # [P, Kp, Mk]
+    P, Kp, Mk = w.shape
     bias = scal[:, 0:1]                           # [P, 1]
     tec = scal[:, 1:2]
     tbm = scal[:, 2:3]
@@ -96,12 +99,12 @@ def msv_plain(codes, lens, cost8, scal, odds, tjb, p1):
     for i in range(Lrun):
         x = codes[:, i].long()
         valid = (lens > i)[None, :]               # [1, B]
-        c = cost[:, x, :]                         # [P, B, Mk]
+        c = w[:, x, :]                            # [P, B, Mk]
         xBv = (xB - tbm).clamp(min=0.0)
         prev = torch.cat([xBv[:, :, None],
                           torch.maximum(m[:, :, :-1], xBv[:, :, None])],
                          dim=2)
-        sv = (prev + bias[:, :, None] - c).clamp(min=0.0)
+        sv = (prev + c).clamp(min=0.0)
         xE = sv.amax(dim=2)
         nxJ = torch.maximum(xJ, xE - tec)
         nxB = torch.clamp(nxJ, min=BASE) - tjb_r

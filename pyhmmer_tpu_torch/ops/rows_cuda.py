@@ -65,7 +65,7 @@ def survivor_rows(pb: ProfileBatch, seq: SeqDevice, pair_p, pair_b):
 
 def ext_rows(terms: np.ndarray, L: int) -> np.ndarray:
     """The rows ``[3, L + 1]`` float64 (btot, etot, mocc) that
-    ``pyhmmer_tpu.ops.native.domaindef(ext_rows=)`` takes, from one pair's
+    ``ops.native.domaindef(ext_rows=)`` takes, from one pair's
     ``terms`` [>= L + 1, 3] (cumulative sums in float64)."""
     t = np.asarray(terms[: L + 1], np.float64)
     btot = np.concatenate([[0.0], np.cumsum(t[:L, 0])])

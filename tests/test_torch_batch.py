@@ -1,15 +1,19 @@
 """The port's profile and sequence packing against the JAX package's
-(``pyhmmer_tpu_torch.ops.batch`` vs ``pyhmmer_tpu.ops.batch``)."""
+(``pyhmmer_tpu_torch.ops.batch`` vs ``pyhmmer_tpu.ops.batch``), each
+packing profiles configured by its own package from the same seeded
+models."""
 
 import numpy as np
 import pytest
 import torch
 
 from pyhmmer_tpu.ops import batch as JB
-from pyhmmer_tpu.plan7.background import Background
-from pyhmmer_tpu.plan7.profile import Profile
+from pyhmmer_tpu.plan7.background import Background as JBackground
+from pyhmmer_tpu.plan7.profile import Profile as JProfile
 from pyhmmer_tpu_torch import _synthetic as syn
 from pyhmmer_tpu_torch.ops import batch as TB
+from pyhmmer_tpu_torch.plan7 import Background, Profile
+from test_torch_host import jax_hmm
 
 # the plain versions loop over small tensors: one intra-op thread per
 # test process keeps pytest-xdist workers from oversubscribing the cores
@@ -27,7 +31,11 @@ def stacks():
         bg = Background(hmms[0].alphabet)
         profs = [Profile(h.M, h.alphabet).configure(h, bg, 400)
                  for h in hmms]
-        out[Mp] = (hmms, JB.ProfileBatch(profs, Mp=Mp),
+        jhmms = [jax_hmm(h) for h in hmms]
+        jbg = JBackground(jhmms[0].alphabet)
+        jprofs = [JProfile(h.M, h.alphabet).configure(h, jbg, 400)
+                  for h in jhmms]
+        out[Mp] = (hmms, JB.ProfileBatch(jprofs, Mp=Mp),
                    TB.ProfileBatch(profs, Mp=Mp))
     return out
 
@@ -47,7 +55,7 @@ def test_profile_fields_equal_jax(stacks, Mp):
     for name in TB.FIELDS:
         np.testing.assert_array_equal(getattr(tpb, name),
                                       getattr(jpb, name), err_msg=name)
-    assert 32 * tpb.S >= Mp and tpb.msv_cost8.shape[2:] == (tpb.S, 32)
+    assert 32 * tpb.S >= Mp and tpb.msv_w16.shape[2:] == (tpb.S, 32)
 
 
 @pytest.mark.parametrize("Mp", [Mp for _, Mp in STACKS])
@@ -82,9 +90,12 @@ def test_kernel_tables_layout(stacks):
         assert (tr[p, 6:, M - 1:] == TB.NEGMASS).all()
         assert (TB.unstriped(tpb.fwd_tr).numpy()[p, 6:, M - 1:]
                 == 0.0).all()
-    cost = TB.unstriped(tpb.msv_cost8).numpy()
-    np.testing.assert_array_equal(cost[:, :, :jpb.Mp], jpb.msv_cost)
-    assert (cost[:, :, jpb.Mp:] == 255).all()
+    # the MSV table is pre-biased, bias - cost, in 16 bits
+    assert tpb.msv_w16.dtype == torch.int16
+    w = TB.unstriped(tpb.msv_w16).numpy()
+    bias = jpb.msv_bias[:, None, None]
+    np.testing.assert_array_equal(w[:, :, :jpb.Mp], bias - jpb.msv_cost)
+    assert (w[:, :, jpb.Mp:] == bias - 255).all()
     nonres = jpb.profiles[0].alphabet.nonresidue_code
     assert (tpb.msv_odds.numpy()[:, nonres] == 0.0).all()
 

@@ -2,7 +2,8 @@
 CPU (the kernels' plain PyTorch versions) against the JAX engine on the
 CPU and the sequential float64 oracle pipeline, on sampled and
 calibrated models searched against random targets with planted
-domains.  Reported rows must be identical, as in
+domains.  Each package searches its own objects, built from the same
+seeded arrays.  Reported rows must be identical, as in
 ``test_execution_modes.py``."""
 
 import io
@@ -14,12 +15,12 @@ import pytest
 import torch
 
 from pyhmmer_tpu import hmmer as jax_hmmer
-from pyhmmer_tpu.easel import SequenceFile
-from pyhmmer_tpu.easel.sequence import DigitalSequenceBlock
 from pyhmmer_tpu.plan7.background import Background
 from pyhmmer_tpu.plan7.builder import Builder
 import pyhmmer_tpu_torch
 from pyhmmer_tpu_torch import _synthetic as syn
+from pyhmmer_tpu_torch.easel import DigitalSequenceBlock, SequenceFile
+from test_torch_host import jax_block, jax_hmm, port_hmm
 
 # the plain versions loop over small tensors: one intra-op thread per
 # test process keeps pytest-xdist workers from oversubscribing the cores
@@ -37,13 +38,17 @@ def rows(th):
 
 @pytest.fixture(scope="module")
 def workload():
-    hmms = syn.sample_models(MODELS, seed=7)
-    bg = Background(hmms[0].alphabet)
-    for h in hmms:
+    """The port's models, calibrated by the JAX package (the port has no
+    calibration yet) and carried back; the JAX package's oracle rows."""
+    jhmms = [jax_hmm(h) for h in syn.sample_models(MODELS, seed=7)]
+    bg = Background(jhmms[0].alphabet)
+    for h in jhmms:
         Builder(h.alphabet).calibrate(h, bg)
+    hmms = [port_hmm(h) for h in jhmms]
     targets, planted = syn.make_targets(hmms, 150, seed=8,
                                         long_lengths=(3000,))
-    oracle = list(jax_hmmer.hmmsearch(hmms, targets, backend="oracle"))
+    oracle = list(jax_hmmer.hmmsearch(jhmms, jax_block(targets),
+                                      backend="oracle"))
     return hmms, targets, planted, oracle
 
 
@@ -64,7 +69,8 @@ def test_matches_jax_engine(workload):
     short = DigitalSequenceBlock(hmms[0].alphabet,
                                  [s for s in targets if len(s) <= 512])
     port = list(pyhmmer_tpu_torch.hmmsearch(hmms, short, device="cpu"))
-    jax_engine = list(jax_hmmer.hmmsearch(hmms, short))
+    jax_engine = list(jax_hmmer.hmmsearch([jax_hmm(h) for h in hmms],
+                                          jax_block(short)))
     assert [rows(th) for th in port] == [rows(th) for th in jax_engine]
     assert any(th.reported for th in port)
 
@@ -114,8 +120,9 @@ def test_cuda_device_raises_without_cuda(workload, monkeypatch):
 @pytest.mark.parametrize("device_rows", [False, True],
                          ids=["rows_off", "rows_on"])
 def test_search_never_imports_jax(device_rows):
-    """A search imports no JAX, with the device rows stage off and on
-    (on: with the cascade forced, so the rows stage has pairs)."""
+    """A search imports neither JAX nor any module of the JAX package,
+    with the device rows stage off and on (on: with the cascade forced,
+    so the rows stage has pairs)."""
     force = ("for k, v in (('SPECULATE_P1B', -1.0), ('HOST_MIN_PAIRS', 0),"
              " ('HOST_PAIRS_PER_ROW', 0.0)):\n"
              "    setattr(pt.engine, k, v)\n") if device_rows else ""
@@ -137,6 +144,9 @@ def test_search_never_imports_jax(device_rows):
         f"assert ('n_rows_ext' in eng.last_timing) == {device_rows}\n"
         "jax = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
         "assert not jax, jax\n"
+        "ref = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] == 'pyhmmer_tpu')\n"
+        "assert not ref, ref\n"
         "print('no jax')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -13,12 +13,12 @@ import pytest
 import torch
 
 from pyhmmer_tpu.ops import batch as JB
-from pyhmmer_tpu.ops import native
 from pyhmmer_tpu.plan7.background import Background
 from pyhmmer_tpu.plan7.profile import Profile
 from pyhmmer_tpu_torch import _synthetic as syn
 from pyhmmer_tpu_torch.ops import batch as TB
-from pyhmmer_tpu_torch.ops import msv_cuda
+from pyhmmer_tpu_torch.ops import msv_cuda, native
+from test_torch_host import jax_hmm
 
 # the plain versions loop over small tensors: one intra-op thread per
 # test process keeps pytest-xdist workers from oversubscribing the cores
@@ -32,7 +32,8 @@ LMAX = 200
 @pytest.fixture(scope="module", params=STACKS, ids=lambda s: f"Mp{s[1]}")
 def case(request):
     Ms, Mp = request.param
-    hmms = syn.sample_models(Ms, seed=Mp)
+    models = syn.sample_models(Ms, seed=Mp)
+    hmms = [jax_hmm(h) for h in models]
     aa = hmms[0].alphabet
     bg = Background(aa)
     profs = [Profile(h.M, aa).configure(h, bg, 400, multihit=True)
@@ -41,7 +42,7 @@ def case(request):
     arrays = {n: getattr(jpb, n) for n in TB.FIELDS}
     arrays.update(Mp=jpb.Mp, Kp=jpb.Kp, scale_b=jpb.scale_b)
     tpb = TB.profile_batch_from_arrays(arrays)
-    codes, lengths = syn.make_lanes(hmms, 64, LMAX, seed=Mp + 1)
+    codes, lengths = syn.make_lanes(models, 64, LMAX, seed=Mp + 1)
     nonres = aa.nonresidue_code
     jdev = JB.SeqDevice(codes, lengths, nonres_code=nonres)
     tdev = TB.SeqDevice(codes, lengths, nonres_code=nonres, device="cpu")
@@ -131,7 +132,7 @@ def test_matches_pallas_per_profile_kernel(case, interpret):
 
 def test_wrapper_checks_its_arguments(case):
     dev, pb = case.tdev, case.tpb
-    args = [dev.codes, dev.lens, pb.msv_cost8, pb.msv_scal, pb.msv_odds,
+    args = [dev.codes, dev.lens, pb.msv_w16, pb.msv_scal, pb.msv_odds,
             dev.tjb, dev.p1]
     bad_dtype = list(args)
     bad_dtype[0] = dev.codes.long()
@@ -153,7 +154,7 @@ def test_wrapper_checks_its_arguments(case):
 def test_other_devices_raise(case):
     """Only a CPU tensor takes the plain version."""
     dev, pb = case.tdev, case.tpb
-    meta = [t.to("meta") for t in (dev.codes, dev.lens, pb.msv_cost8,
+    meta = [t.to("meta") for t in (dev.codes, dev.lens, pb.msv_w16,
                                    pb.msv_scal, pb.msv_odds, dev.tjb,
                                    dev.p1)]
     with pytest.raises(ValueError, match="unsupported device"):

@@ -23,17 +23,17 @@ for _m in ("pyhmmer_tpu.ops.rows_pallas", "pyhmmer_tpu.ops.msv_pallas",
            "pyhmmer_tpu.ops.fwd_pallas", "pyhmmer_tpu.ops.vit_pallas"):
     sys.modules.pop(_m, None)
 
-from pyhmmer_tpu.easel.sequence import DigitalSequenceBlock  # noqa: E402
 from pyhmmer_tpu.engine import SearchEngine as JaxEngine  # noqa: E402
 from pyhmmer_tpu.ops import batch as JB  # noqa: E402
-from pyhmmer_tpu.ops import native  # noqa: E402
 from pyhmmer_tpu.ops import reference as ref  # noqa: E402
-from pyhmmer_tpu.plan7.background import Background  # noqa: E402
-from pyhmmer_tpu.plan7.profile import Profile  # noqa: E402
+from pyhmmer_tpu.plan7 import background as jbg, profile as jprof  # noqa: E402
 import pyhmmer_tpu_torch  # noqa: E402
 from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
+from pyhmmer_tpu_torch.easel import DigitalSequenceBlock  # noqa: E402
 from pyhmmer_tpu_torch.ops import batch as TB  # noqa: E402
-from pyhmmer_tpu_torch.ops import rows_cuda  # noqa: E402
+from pyhmmer_tpu_torch.ops import native, rows_cuda  # noqa: E402
+from pyhmmer_tpu_torch.plan7 import Background, Profile  # noqa: E402
+from test_torch_host import jax_block, jax_hmm  # noqa: E402
 
 # the plain versions loop over small tensors: one intra-op thread per
 # test process keeps pytest-xdist workers from oversubscribing the cores
@@ -91,14 +91,21 @@ def lanes(hmms, seed):
     return codes, np.array(LENGTHS, np.int64)
 
 
+def configured(hmms, background, profile):
+    """Multihit profiles of ``hmms`` at L 400, by one package's classes."""
+    bg = background(hmms[0].alphabet)
+    return [profile(h.M, h.alphabet).configure(h, bg, 400, multihit=True)
+            for h in hmms]
+
+
 @pytest.fixture(scope="module", params=STACKS, ids=lambda s: f"Mp{s[1]}")
 def case(request):
     Ms, Mp = request.param
     hmms = syn.sample_models(Ms, seed=Mp + 11)
     aa = hmms[0].alphabet
-    bg = Background(aa)
-    profs = [Profile(h.M, aa).configure(h, bg, 400, multihit=True)
-             for h in hmms]
+    profs = configured(hmms, Background, Profile)
+    jprofs = configured([jax_hmm(h) for h in hmms], jbg.Background,
+                        jprof.Profile)
     codes, lengths = lanes(hmms, seed=Mp)
     # every profile against every lane, interleaved so the stable sort
     # by profile has work to do
@@ -112,11 +119,11 @@ def case(request):
                                                       pair_b)
     from pyhmmer_tpu.ops import rows_pallas
     jt, jf, jb, jorder = rows_pallas.survivor_rows(
-        JB.ProfileBatch(profs, Mp=Mp), JB.SeqDevice(codes, lengths),
+        JB.ProfileBatch(jprofs, Mp=Mp), JB.SeqDevice(codes, lengths),
         pair_p, pair_b)
     return SimpleNamespace(
-        Mp=Mp, profs=profs, codes=codes, lengths=lengths, pair_p=pair_p,
-        pair_b=pair_b, terms=terms.numpy(), fsc=fsc.numpy(),
+        Mp=Mp, profs=profs, jprofs=jprofs, codes=codes, lengths=lengths,
+        pair_p=pair_p, pair_b=pair_b, terms=terms.numpy(), fsc=fsc.numpy(),
         bsc=bsc.numpy(), order=order, tpb=tpb, dev=dev,
         jax=(np.asarray(jt), np.asarray(jf), np.asarray(jb), jorder))
 
@@ -133,7 +140,7 @@ def test_matches_float64_parsers(case):
     for g, src in enumerate(case.order):
         pi, b = int(case.pair_p[src]), int(case.pair_b[src])
         L = int(case.lengths[b])
-        want, score = oracle_rows(case.profs[pi], case.codes[b, :L])
+        want, score = oracle_rows(case.jprofs[pi], case.codes[b, :L])
         assert abs(case.fsc[g] - score) < fbar, (g, case.fsc[g], score)
         assert abs(case.bsc[g] - score) < bbar, (g, case.bsc[g], score)
         np.testing.assert_allclose(rows_cuda.ext_rows(case.terms[g], L),
@@ -279,7 +286,7 @@ def rows_workload():
         plants=((1.0, 0, 0), (0.6, 0, 0), (0.7, 10, 0)) * 3)
     short = DigitalSequenceBlock(models[0].alphabet,
                                  [s for s in targets if len(s) <= 512])
-    return models, short
+    return models, short, [jax_hmm(h) for h in models], jax_block(short)
 
 
 def test_engine_rows_stage_matches_rows_off_and_jax(rows_workload,
@@ -289,7 +296,7 @@ def test_engine_rows_stage_matches_rows_off_and_jax(rows_workload,
     port with rows off and against the JAX engine's rows stage."""
     if not native.available():
         pytest.skip("no native library")
-    models, targets = rows_workload
+    models, targets, jax_models, jax_targets = rows_workload
     for name, value in (("SPECULATE_P1B", -1.0), ("HOST_MIN_PAIRS", 0),
                         ("HOST_PAIRS_PER_ROW", 0.0)):
         monkeypatch.setattr(pyhmmer_tpu_torch.engine, name, value)
@@ -303,8 +310,8 @@ def test_engine_rows_stage_matches_rows_off_and_jax(rows_workload,
     res_on = on.search(models, targets)
     off = pyhmmer_tpu_torch.SearchEngine(alphabet, device="cpu")
     res_off = off.search(models, targets)
-    jax_eng = JaxEngine(alphabet, use_pallas=True)
-    res_jax = jax_eng.search(models, targets)
+    jax_eng = JaxEngine(jax_models[0].alphabet, use_pallas=True)
+    res_jax = jax_eng.search(jax_models, jax_targets)
 
     assert on.last_timing.get("n_rows_ext", 0) > 0, on.last_timing
     assert jax_eng.last_timing.get("n_rows_ext", 0) > 0

@@ -18,6 +18,9 @@ from pyhmmer_tpu.plan7.profile import Profile
 from pyhmmer_tpu_torch import _synthetic as syn
 from pyhmmer_tpu_torch.ops import batch as TB
 from pyhmmer_tpu_torch.ops import vit_cuda
+from pyhmmer_tpu_torch.plan7 import Background as TBackground
+from pyhmmer_tpu_torch.plan7 import Profile as TProfile
+from test_torch_host import jax_hmm
 
 # the plain versions loop over small tensors: one intra-op thread per
 # test process keeps pytest-xdist workers from oversubscribing the cores
@@ -28,18 +31,26 @@ STACKS = [((60, 200, 330), 352), ((400,), 416), ((700,), 736),
 N, LMAX, BAR = 36, 160, 0.05
 
 
+def port_profiles(models):
+    """The port's profiles of its own models."""
+    bg = TBackground(models[0].alphabet)
+    return [TProfile(h.M, h.alphabet).configure(h, bg, 400, multihit=True)
+            for h in models]
+
+
 @pytest.fixture(scope="module", params=STACKS, ids=lambda s: f"Mp{s[1]}")
 def case(request):
     Ms, Mp = request.param
-    hmms = syn.sample_models(Ms, seed=Mp)
+    models = syn.sample_models(Ms, seed=Mp)
+    hmms = [jax_hmm(h) for h in models]
     aa = hmms[0].alphabet
     bg = Background(aa)
     profs = [Profile(h.M, aa).configure(h, bg, 400, multihit=True)
              for h in hmms]
-    codes, lengths = syn.make_lanes(hmms, N, LMAX, seed=Mp + 2)
+    codes, lengths = syn.make_lanes(models, N, LMAX, seed=Mp + 2)
     jpb = JB.ProfileBatch(profs, Mp=Mp)
     jax_all = JB.viterbi_scores(jpb, codes, lengths)          # [P, N]
-    tpb = TB.ProfileBatch(profs, Mp=Mp)
+    tpb = TB.ProfileBatch(port_profiles(models), Mp=Mp)
     dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code)
     rng = np.random.default_rng(Mp)
     rows = rng.permutation(N)[: N - 6]
@@ -47,7 +58,7 @@ def case(request):
     need[:, 0] = False                     # a column nobody needs
     out = vit_cuda.viterbi(tpb, dev, torch.from_numpy(rows),
                            torch.from_numpy(need)).numpy()
-    return SimpleNamespace(hmms=hmms, bg=bg, codes=codes, lengths=lengths,
+    return SimpleNamespace(models=models, hmms=hmms, bg=bg, codes=codes, lengths=lengths,
                            rows=rows, need=need, out=out,
                            jax=jax_all[:, rows], dev=dev)
 
@@ -80,8 +91,7 @@ def test_matches_float64_oracle(case):
 
 
 def test_no_needed_pair_is_a_no_op(case):
-    tpb = TB.ProfileBatch([Profile(h.M, h.alphabet).configure(
-        h, case.bg, 400) for h in case.hmms])
+    tpb = TB.ProfileBatch(port_profiles(case.models))
     rows = torch.arange(4)
     need = torch.zeros((tpb.P, 4), dtype=torch.bool)
     out = vit_cuda.viterbi(tpb, case.dev, rows, need)
