@@ -12,7 +12,9 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    counted from ``cuobjdump -sass``);
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at main-path shapes (for MSV also the widest chunk x the
-   longest bucket), with the bars below (MSV: ovf identical, dx exact on
+   longest bucket; for Forward also the launch with the most pairs of
+   one smoke search, replayed with its own arguments), with the bars
+   below (MSV: ovf identical, dx exact on
    every pair neither side flags, biaslog within 0.25 (2e-3 + 1e-6 L)
    nats); both are timed with CUDA events (warm, many launches, in turns
    plain/kernel/kernel/plain; the survivor-rows kernel against one timed
@@ -20,7 +22,8 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 3. search: ``hmmsearch(device="cuda")`` once warm, then three timed runs;
    every kernel's launch counter must be > 0 in the last run (the rows
    kernel's must stay 0); a fifth run through ``SearchEngine.search``
-   reads the engine's stage marks.  Then the same with the device rows
+   reads the engine's stage marks and the bytes of the Forward kernel's
+   packed tables.  Then the same with the device rows
    stage on (``device_rows=True``): the rows kernel's counter and the
    engine's ``n_rows_ext`` must be > 0;
 4. correctness: for three distinct queries (padded model width <= 384,
@@ -93,7 +96,7 @@ KERNELS = {
     "msv": (msv_cuda, "pyhmmer_tpu_torch/csrc/msv.cu",
             "pyhmmer_tpu/ops/msv_pallas.py:355"),
     "fwd": (fwd_cuda, "pyhmmer_tpu_torch/csrc/fwd.cu",
-            "pyhmmer_tpu/ops/fwd_pallas.py:586,156"),
+            "pyhmmer_tpu/ops/fwd_pallas.py:586,419,156"),
     "vit": (vit_cuda, "pyhmmer_tpu_torch/csrc/vit.cu",
             "pyhmmer_tpu/ops/vit_pallas.py:149"),
     "rows": (rows_cuda, "pyhmmer_tpu_torch/csrc/rows.cu",
@@ -122,15 +125,18 @@ def rows(th):
 
 
 def ptxas_summary(report):
-    """{kernel or kernel<S>: registers, static shared memory and spill
-    bytes} from the ``-Xptxas -v`` report (``msv_kernel`` also takes
-    Kp * ceil(S/2) * 128 bytes of dynamic shared memory at launch)."""
+    """{kernel or kernel<template arguments>: registers, static shared
+    memory and spill bytes} from the ``-Xptxas -v`` report
+    (``msv_kernel`` also takes Kp * ceil(S/2) * 128 bytes of dynamic
+    shared memory at launch; ``fwd_kernel<G,SL>`` runs G lanes a target,
+    SL slots a lane)."""
     out, name = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"function '_Z\d+([A-Za-z_]\w*?)(?:ILi(\d+)E|P)",
+            m = re.search(r"function '_Z\d+([A-Za-z_]\w*?)(I(?:Li\d+E)+E|P)",
                           line)
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            targs = re.findall(r"Li(\d+)E", m.group(2))
+            name = m.group(1) + (f"<{','.join(targs)}>" if targs else "")
             out[name] = {"smem_static": 0}
         elif name and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill", line)
@@ -238,10 +244,29 @@ def chunk_batch(queries, qidx, Mp):
     return B.ProfileBatch(profs, Mp=Mp).to("cuda")
 
 
+def main_path_fwd_launches(queries, targets):
+    """The arguments (profile batch, bucket, rows, need) of every
+    ``fwd_cuda.forward`` call of one smoke search (rows off), in order."""
+    calls = []
+    real = fwd_cuda.forward
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+    fwd_cuda.forward = spy
+    try:
+        E.SearchEngine(queries[0].alphabet, device="cuda").search(
+            queries, targets)
+    finally:
+        fwd_cuda.forward = real
+    return calls
+
+
 def phase_parity(queries, targets):
     """Each kernel against its plain version at main-path shapes: the
     chunk holding most profiles, a chunk with 384 < Mp <= 768 and the
-    widest chunk, against the buckets the search gives them.  ``tpu``
+    widest chunk, against the buckets the search gives them, and for
+    Forward the launch with the most pairs of one smoke search.  ``tpu``
     names the JAX package's route for the same shape."""
     coalesced = E.group_queries(queries)
     devs = {b[3].Lmax: b[3] for b in E._Buckets(targets, "cuda").buckets}
@@ -295,27 +320,36 @@ def phase_parity(queries, targets):
                 "biaslog <= 0.25*(2e-3+1e-6 L)")
 
     # Forward / Viterbi: survivor-like columns (every 8th lane) with a
-    # 25% need mask; the widest chunk x every lane of the long bucket
+    # 25% need mask; the widest chunk x every lane of the long bucket;
+    # Forward alone: the main path's launch with the most pairs
     cases = []
     for Mp, Lmax in ((big, 512), (big, 2048), (mid, 512)):
         pb, dev = pbs[Mp], devs[Lmax]
         cols = torch.arange(0, dev.B, 8, device="cuda")
         need = (torch.rand((pb.P, len(cols)), generator=gen) < 0.25)
-        cases.append((pb, dev, cols, need.to("cuda"), 10, 1))
+        cases.append((pb, dev, cols, need.to("cuda"), 10, 1, "",
+                      ("fwd", "vit")))
     pb, dev = pbs[huge], devs[max(devs)]
     cases.append((pb, dev, torch.arange(dev.B, device="cuda"),
                   torch.ones((pb.P, dev.B), dtype=torch.bool,
-                             device="cuda"), 3, 1))
-    for pb, dev, cols, need, reps_k, reps_p in cases:
+                             device="cuda"), 3, 1, "", ("fwd", "vit")))
+    launches = main_path_fwd_launches(queries, targets)
+    pb, dev, cols, need = max(launches, key=lambda c: int(c[3].sum()))
+    cases.append((pb, dev, cols, need, 20, 1,
+                  f"main-path launch (most pairs of {len(launches)}): ",
+                  ("fwd",)))
+    for pb, dev, cols, need, reps_k, reps_p, label, kernels in cases:
         if pb.Mp > 768 or dev.Lmax > 8192:
             route = "batch XLA scan"
         else:
             route = "_pallas3" if pb.Mp <= 384 else "_pallas2"
         for name, fn, plain, tol, tabs in (
                 ("fwd", fwd_cuda.fwd_scores, fwd_cuda.fwd_plain, FWD_TOL,
-                 ("fwd_ems", "fwd_eis", "fwd_tr")),
+                 ("fwd_emis", "fwd_trans")),
                 ("vit", vit_cuda.vit_scores, vit_cuda.vit_plain, VIT_TOL,
                  ("vit_msc", "vit_isc", "vit_tr"))):
+            if name not in kernels:
+                continue
             args = (dev.codes, dev.lens, dev.lm,
                     *(getattr(pb, t) for t in tabs), cols, need)
             k = fn(*args)
@@ -338,8 +372,9 @@ def phase_parity(queries, targets):
             cells = float((torch.as_tensor(pb.M, dtype=torch.float64)[:, None]
                            * lens[None, :])[need.cpu()].sum())
             results[name].append(dict(
-                shape=f"P{pb.P} x n{len(cols)} (need {int(need.sum())}) x "
-                      f"L{dev.Lmax} x Mk{32 * pb.S}", tpu=tpu,
+                shape=f"{label}P{pb.P} x n{len(cols)} (need "
+                      f"{int(need.sum())}) x L{dev.Lmax} x Mk{32 * pb.S}",
+                tpu=tpu,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
                 **bound(FILTER_FLOPS * cells / F32_RATE, args, (k,))))
             say("parity", kernel=name, **results[name][-1],
@@ -358,9 +393,8 @@ def rows_parity(pb, dev, npairs, gen):
     four with the highest Forward scores (planted domains, real domain
     mass) and random ones.  Timed in turns: 10 kernel launches, the plain
     version once (it loops over every row in Python), 10 launches."""
-    everything = fwd_cuda.fwd_scores(
-        dev.codes, dev.lens, dev.lm, pb.fwd_ems, pb.fwd_eis, pb.fwd_tr,
-        torch.arange(dev.B, device="cuda"),
+    everything = fwd_cuda.forward(
+        pb, dev, torch.arange(dev.B, device="cuda"),
         torch.ones((pb.P, dev.B), dtype=torch.bool, device="cuda"))
     top = torch.topk(everything.flatten(), 4).indices.cpu()
     flat = torch.sort(torch.cat([top, torch.randint(
@@ -439,9 +473,15 @@ def phase_search(queries, targets, device_rows=False):
     eng.search(queries, targets)
     torch.cuda.synchronize()
     marks = eng.last_timing
+    # the Forward kernel's packed tables, on the card beside the rows
+    # kernel's striped ones (the same bytes again)
+    packed = sum(t.numel() * t.element_size()
+                 for c in eng._model_cache.values()
+                 for t in (c[3].fwd_emis, c[3].fwd_trans))
     say("search" + suffix, queries=len(queries), targets=len(targets),
         comparisons=ncmp, wall_s=walls, cmp_per_s=[ncmp / w for w in walls],
-        max_memory_allocated=peak, launches=launches,
+        max_memory_allocated=peak, fwd_packed_table_bytes=packed,
+        launches=launches,
         marks_wall_s=time.time() - t, stage_marks=marks)
     for k, n in launches.items():
         if k in PATHS[device_rows] and n <= 0:

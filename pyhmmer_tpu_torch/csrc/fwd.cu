@@ -1,9 +1,10 @@
 // Forward filter score (odds space, parser score), multihit local.
 //
 // Replaces the TPU kernels pyhmmer_tpu/ops/fwd_pallas.py:_fwd3_body
-// (profile-stacked, launched by _fwd_pallas3) and _fwd2_body (per
-// profile, launched by _fwd_pallas2), and the XLA scan
-// ops/batch.py:_forward_kernel.
+// (profile-stacked, launched by _fwd_pallas3), _fwd2_body (per profile,
+// launched by _fwd_pallas2) and _fwd_body (v1, launched by _fwd_pallas,
+// its D->D chain an [Mp, Mp] transfer matmul per row), and the XLA scan
+// ops/batch.py:_forward_kernel that serves long buckets and Mp > 768.
 //
 // Semantics: HMMER's odds-space Forward parser in f32 throughout.  Every
 // row is rescaled by s = max(E, J, C, N) and log s is accumulated, so the
@@ -12,150 +13,222 @@
 // w_e; here D is computed explicitly).  Per-target length model: loop
 // odds L/(L+3), move odds 3/(L+3).
 //
-// Design: as vit.cu -- one warp per needed (profile, target) pair, lane
-// stripes of S slots in registers, emission odds read by residue code from
-// the stripe-interleaved tables through the read-only cache.  The D->D
-// chain d[s+1] = m[s] * tMD + d[s] * tDD is an exact O(Mk) linear
-// recurrence: each lane folds its stripe into d_out = d_in * A + B, a
-// 5-step warp scan composes the affine maps, and a second pass fills in
-// the D row.  (The TPU kernels applied an O(Mk^2) transfer matrix per
-// row because the MXU made it cheap; the scan does O(Mk) work.)  Bound:
-// ALU and latency (about 12 ops per cell, a scan and a warp sum per row).
+// Layout: G lanes score one (profile, target) pair, T = 32 / G pairs a
+// warp; lane l of a group holds the stripe of SL = Mk / G slots
+// l*SL .. l*SL+SL-1 in registers (M, I and D).  The D->D chain d[s+1] =
+// m[s] * tMD + d[s] * tDD is an exact O(Mk) linear recurrence: each lane
+// runs it over its stripe with 0 entering (the partial row dl), a log2 G
+// step scan composes the stripes' affine maps d_out = d_in * A + dl, and
+// the value entering the stripe is added back as d_in * pre[j] (pre[j]:
+// the product of the stripe's tDD before slot j).  A, pre[j] and the
+// scan's multipliers depend on the model only and are computed once.
+// (The TPU kernels applied an O(Mk^2) transfer matrix per row because
+// the MXU made it cheap; the scan does O(Mk) work.)
+//
+// Bound on this card: instruction issue and, in the long buckets, each
+// row's latency chain -- not bytes.  Per slot and row a lane does about
+// 8 FMAs of the recurrence; the first version of this kernel (one warp a
+// pair, one table per transition) also issued 10-12 loads per slot and
+// row, and a fixed per-row cost (about 16 shuffles for the stripe edge,
+// the scan and the E sum, a division and a logf) that at 3 slots a lane
+// (the Mk96 models, the most populous) came to more instructions than the
+// recurrence.  The design against that:
+//
+// * Packed tables (ops/batch.py: fwd_emis, fwd_trans): a slot's eight
+//   transition odds sit together, two float4 loads, and its M and I
+//   emission odds for one residue one float2 load: 3 loads a slot-row.
+// * G = 8 lanes for models up to 128 slots, 16 up to 256, else 32
+//   (fwd_lanes): the shuffles take width G, the scan has log2 G steps,
+//   and the fixed per-row work is paid once for T targets (at Mk96 a
+//   lane holds 12 slots, not 3).  Each target keeps its own scalars (N,
+//   B, J, C and the log scale), replicated over its G lanes; past its
+//   length a target reads code 0 and its scalars stop, while the other
+//   targets of the warp run on.  The wrapper (ops/_pairs.py:pairs) orders
+//   each profile's pairs longest first, so the targets of a warp end on
+//   nearby rows and usually share a profile, whose transition loads then
+//   broadcast; at a profile boundary each group reads its own profile.
+// * The row-invariant D->D terms (A, pre, the scan multipliers) are
+//   computed once per pair instead of once per row.
 
 #include "common.cuh"
 
 constexpr float TINY = 1e-30f;
 
-template <int S>
+// Lanes per (profile, target) pair for a model of 32 * S slots
+// (ops/batch.py:fwd_lanes must match).
+__host__ __device__ constexpr int fwd_lanes(int S) {
+  return S <= 4 ? 8 : S <= 8 ? 16 : 32;
+}
+
+__host__ __device__ constexpr int log2_of(int n) {
+  return n <= 1 ? 0 : 1 + log2_of(n / 2);
+}
+
+template <int G, int SL>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 fwd_kernel(const uint8_t* __restrict__ codes, int Lmax,
            const int* __restrict__ lens, const float* __restrict__ lm,
-           const float* __restrict__ ems,  // [P, Kp, S, 32] odds
-           const float* __restrict__ eis,  // [P, Kp, S, 32] odds
-           const float* __restrict__ tr,   // [P, 8, S, 32] odds
+           const float2* __restrict__ emis,   // [P, Kp, SL, G] (M, I) odds
+           const float4* __restrict__ trans,  // [P, SL, G, 2]: 8 odds a slot
            const int* __restrict__ pair_p, const int* __restrict__ pair_row,
            const int* __restrict__ pair_out, int npairs, int Kp,
            float* __restrict__ out) {
-  const int w = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (w >= npairs) return;
+  constexpr int T = 32 / G;      // targets per warp
+  constexpr int LG = log2_of(G);  // steps of the group scan and sum
+  // pre[j] in registers; wider stripes recompute it from tDD every row
+  constexpr bool PRE_REGS = SL <= 24;
+  const int q0 = (blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5)) * T;
+  if (q0 >= npairs) return;  // the whole warp leaves together
   const int lane = threadIdx.x & 31;
-  const int p = pair_p[w], row = pair_row[w];
-  const int L = lens[row];
+  const int hl = lane & (G - 1);  // lane within the target's group
+  const int q = q0 + lane / G;
+  const bool valid = q < npairs;
+  const int qv = valid ? q : q0;
+  const int p = pair_p[qv], row = pair_row[qv];
+  const int L = valid ? lens[row] : 0;
+  int Lrun = L;  // the warp runs to its longest target
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1)
+    Lrun = max(Lrun, __shfl_xor_sync(FULL_MASK, Lrun, o));
   const float loop = lm[row * 4 + 0], move = lm[row * 4 + 1];
   const float log_move = lm[row * 4 + 3];
-  const float* T = tr + (size_t)p * 8 * S * 32 + lane;
-  const float* MS = ems + (size_t)p * Kp * S * 32 + lane;
-  const float* IS = eis + (size_t)p * Kp * S * 32 + lane;
-#define TR(t, j) __ldg(T + ((t) * S + (j)) * 32)
+  // slot j of this lane: transitions TR[2 j G] (tMM, tIM, tDM, tBM) and
+  // TR[2 j G + 1] (tMI, tII, tMD, tDD); emissions of code x EM[(x SL + j) G]
+  const float4* TR = trans + ((size_t)p * SL * G + hl) * 2;
+  const float2* EM = emis + (size_t)p * Kp * SL * G + hl;
+  auto tdd = [&](int j) {
+    return __ldg(reinterpret_cast<const float*>(TR + 2 * j * G + 1) + 3);
+  };
 
-  float m[S], iv[S], d[S];
+  // the row-invariant D->D terms
+  float pre[PRE_REGS ? SL : 1];
+  float A = 1.f, spre = 0.f;
 #pragma unroll
-  for (int j = 0; j < S; ++j) m[j] = iv[j] = d[j] = 0.f;
+  for (int j = 0; j < SL; ++j) {
+    if constexpr (PRE_REGS) pre[j] = A;
+    spre += A;
+    A *= tdd(j);
+  }
+  // scan step k combines with the group lane 2^k below: dl += dl' * amul
+  // (0 where there is none, so the step needs no branch)
+  float amul[LG];
+#pragma unroll
+  for (int k = 0; k < LG; ++k) {
+    const float Ap = __shfl_up_sync(FULL_MASK, A, 1 << k, G);
+    amul[k] = hl >= (1 << k) ? A : 0.f;
+    if (hl >= (1 << k)) A *= Ap;
+  }
+
+  float m[SL], iv[SL], d[SL];
+#pragma unroll
+  for (int j = 0; j < SL; ++j) m[j] = iv[j] = d[j] = 0.f;
   float xN = 1.f, xB = move, xJ = 0.f, xC = 0.f, lsc = 0.f;
 
   const uint8_t* seq = codes + (size_t)row * Lmax;
-  for (int i0 = 0; i0 < L; i0 += 32) {
-    const int nr = min(32, L - i0);
-    const int mycode = lane < nr ? (int)seq[i0 + lane] : 0;
+  for (int i0 = 0; i0 < Lrun; i0 += G) {
+    const int nr = min(G, Lrun - i0);
+    // past its own length a target reads code 0 and its scalars stop
+    const int mycode = i0 + hl < L ? (int)seq[i0 + hl] : 0;
     for (int r = 0; r < nr; ++r) {
-      const int x = __shfl_sync(FULL_MASK, mycode, r);
-      const float* ms = MS + x * S * 32;
-      const float* is = IS + x * S * 32;
-      float cm = __shfl_up_sync(FULL_MASK, m[S - 1], 1);
-      float ci = __shfl_up_sync(FULL_MASK, iv[S - 1], 1);
-      float cd = __shfl_up_sync(FULL_MASK, d[S - 1], 1);
-      if (lane == 0) cm = ci = cd = 0.f;
+      const int x = __shfl_sync(FULL_MASK, mycode, r, G);
+      const float2* ex = EM + (size_t)x * SL * G;
+      float pm = __shfl_up_sync(FULL_MASK, m[SL - 1], 1, G);
+      float pi = __shfl_up_sync(FULL_MASK, iv[SL - 1], 1, G);
+      float pd = __shfl_up_sync(FULL_MASK, d[SL - 1], 1, G);
+      if (hl == 0) pm = pi = pd = 0.f;
+      // M and I from the previous row; D with 0 entering the stripe
+      float dl = 0.f, esum = 0.f;
 #pragma unroll
-      for (int j = S - 1; j >= 0; --j) {
-        const float pm = j ? m[j - 1] : cm;
-        const float pi = j ? iv[j - 1] : ci;
-        const float pd = j ? d[j - 1] : cd;
-        const float nm = __ldg(ms + j * 32) *
-                         (pm * TR(0, j) + pi * TR(1, j) + pd * TR(2, j) +
-                          xB * TR(3, j));
-        const float ni = __ldg(is + j * 32) * (m[j] * TR(4, j) +
-                                               iv[j] * TR(5, j));
+      for (int j = 0; j < SL; ++j) {
+        const float4 ta = __ldg(TR + 2 * j * G);
+        const float4 tb = __ldg(TR + 2 * j * G + 1);
+        const float2 e = __ldg(ex + j * G);
+        const float om = m[j], oi = iv[j], od = d[j];
+        const float nm =
+            e.x * (pm * ta.x + pi * ta.y + pd * ta.z + xB * ta.w);
         m[j] = nm;
-        iv[j] = ni;
+        iv[j] = e.y * (om * tb.x + oi * tb.y);
+        d[j] = dl;
+        esum += nm + dl;
+        dl = dl * tb.w + nm * tb.z;
+        pm = om;
+        pi = oi;
+        pd = od;
       }
-      // D chain, pass 1: this stripe's map d_out = d_in * A + Bv
-      float A = 1.f, Bv = 0.f;
+      // compose the stripes' maps over the group: what enters each stripe
 #pragma unroll
-      for (int j = 0; j < S; ++j) {
-        Bv = m[j] * TR(6, j) + Bv * TR(7, j);
-        A *= TR(7, j);
-      }
+      for (int k = 0; k < LG; ++k)
+        dl = fmaf(__shfl_up_sync(FULL_MASK, dl, 1 << k, G), amul[k], dl);
+      float dd = __shfl_up_sync(FULL_MASK, dl, 1, G);
+      if (hl == 0) dd = 0.f;
+      float e = fmaf(dd, spre, esum);
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float Ap = __shfl_up_sync(FULL_MASK, A, o);
-        const float Bp = __shfl_up_sync(FULL_MASK, Bv, o);
-        if (lane >= o) {
-          Bv = Bp * A + Bv;
-          A = Ap * A;
-        }
-      }
-      float dd = __shfl_up_sync(FULL_MASK, Bv, 1);
-      if (lane == 0) dd = 0.f;
-      // pass 2: the D row and the E sum over M and D
-      float es = 0.f;
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        d[j] = dd;
-        es += m[j] + dd;
-        dd = m[j] * TR(6, j) + dd * TR(7, j);
-      }
-      const float e = warp_sum_f(es);
+      for (int o = 1; o < G; o <<= 1)
+        e += __shfl_xor_sync(FULL_MASK, e, o, G);
       const float nj = xJ * loop + e * 0.5f;
       const float nc = xC * loop + e * 0.5f;
       const float nn = xN * loop;
       const float nb = (nn + nj) * move;
       const float mx = fmaxf(fmaxf(fmaxf(e, nj), fmaxf(nc, nn)), TINY);
       const float inv = 1.f / mx;
-      lsc += logf(mx);
+      // the D row (what enters the stripe added back), then the rescale
+      if constexpr (PRE_REGS) {
 #pragma unroll
-      for (int j = 0; j < S; ++j) {
-        m[j] *= inv;
-        iv[j] *= inv;
-        d[j] *= inv;
+        for (int j = 0; j < SL; ++j) {
+          m[j] *= inv;
+          iv[j] *= inv;
+          d[j] = fmaf(dd, pre[j], d[j]) * inv;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < SL; ++j) {
+          m[j] *= inv;
+          iv[j] *= inv;
+          d[j] = (d[j] + dd) * inv;
+          dd *= tdd(j);
+        }
       }
-      xJ = nj * inv;
-      xC = nc * inv;
-      xN = nn * inv;
-      xB = nb * inv;
+      if (i0 + r < L) {
+        lsc += logf(mx);
+        xJ = nj * inv;
+        xC = nc * inv;
+        xN = nn * inv;
+        xB = nb * inv;
+      }
     }
   }
-#undef TR
-  if (lane == 0)
-    out[pair_out[w]] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
+  if (hl == 0 && valid)
+    out[pair_out[q]] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
 }
 
 template <int S>
 static int launch_fwd(const void* codes, int Lmax, const void* lens,
-                      const void* lm, const void* ems, const void* eis,
-                      const void* tr, const void* pair_p,
-                      const void* pair_row, const void* pair_out,
-                      int npairs, int Kp, void* out, cudaStream_t stream) {
-  const int grid = (npairs + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  fwd_kernel<S><<<grid, 32 * WARPS_PER_BLOCK, 0, stream>>>(
+                      const void* lm, const void* emis, const void* trans,
+                      const void* pair_p, const void* pair_row,
+                      const void* pair_out, int npairs, int Kp, void* out,
+                      cudaStream_t stream) {
+  constexpr int G = fwd_lanes(S), SL = 32 * S / G;
+  const int warps = (npairs + 32 / G - 1) / (32 / G);
+  const int grid = (warps + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  fwd_kernel<G, SL><<<grid, 32 * WARPS_PER_BLOCK, 0, stream>>>(
       (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
-      (const float*)ems, (const float*)eis, (const float*)tr,
-      (const int*)pair_p, (const int*)pair_row, (const int*)pair_out,
-      npairs, Kp, (float*)out);
+      (const float2*)emis, (const float4*)trans, (const int*)pair_p,
+      (const int*)pair_row, (const int*)pair_out, npairs, Kp, (float*)out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int fwd_launch(const void* codes, int Lmax, const void* lens,
-                          const void* lm, const void* ems, const void* eis,
-                          const void* tr, const void* pair_p,
+                          const void* lm, const void* emis,
+                          const void* trans, const void* pair_p,
                           const void* pair_row, const void* pair_out,
                           int npairs, int Kp, int S, void* out,
                           void* stream) {
   if (npairs <= 0) return 0;
   switch (S) {
-#define PYHMMER_CASE(s)                                                  \
-  case s:                                                                \
-    return launch_fwd<s>(codes, Lmax, lens, lm, ems, eis, tr, pair_p,    \
-                         pair_row, pair_out, npairs, Kp, out,            \
+#define PYHMMER_CASE(s)                                                   \
+  case s:                                                                 \
+    return launch_fwd<s>(codes, Lmax, lens, lm, emis, trans, pair_p,      \
+                         pair_row, pair_out, npairs, Kp, out,             \
                          (cudaStream_t)stream);
     PYHMMER_STRIPES(PYHMMER_CASE)
 #undef PYHMMER_CASE

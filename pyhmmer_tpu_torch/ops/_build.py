@@ -51,7 +51,9 @@ SIGNATURES = {
     # pair_out, npairs, Kp, S, out, stream
     "vit_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P],
-    "fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # codes, Lmax, lens, lm, emis, trans, pair_p, pair_row, pair_out,
+    # npairs, Kp, S, out, stream
+    "fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P],
     # codes, Lmax, lens, lm, ems, eis, tr, pair_p, pair_row, npairs, Kp,
     # S, frows, fsc, terms, bsc, stream

@@ -6,14 +6,14 @@ from __future__ import annotations
 
 import torch
 
-from .batch import NEGMASS, STRIPES
+from .batch import NEGMASS, STRIPES, fwd_lanes
 
 
-def check_tensors(want: dict, table) -> None:
+def check_tensors(want: dict, table=None) -> None:
     """Raise unless every ``name: (tensor, dtype, shape or None)`` of
     ``want`` has that dtype and shape, lies on the first tensor's device
-    and is contiguous, and the striped [P, Kp, S, 32] ``table`` has a
-    compiled stripe width."""
+    and is contiguous, and the striped [P, Kp, S, 32] ``table`` (if
+    given) has a compiled stripe width."""
     device = next(iter(want.values()))[0].device
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype:
@@ -25,7 +25,7 @@ def check_tensors(want: dict, table) -> None:
             raise ValueError(f"{name} is on {t.device}, not {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if (table.dim() != 4 or table.shape[3] != 32
+    if table is not None and (table.dim() != 4 or table.shape[3] != 32
             or table.shape[2] not in STRIPES or table.shape[1] > 32):
         raise ValueError(f"unsupported table shape {tuple(table.shape)}")
 
@@ -45,12 +45,39 @@ def check(codes, lens, lm, emis_m, emis_i, tr, rows, need):
                    "need": (need, torch.bool, (P, n))}, emis_m)
 
 
-def pairs(rows, need):
+def check_fwd(codes, lens, lm, emis, trans, rows, need):
+    """Raise on what the Forward kernel does not take: ``emis`` [P, Kp,
+    SL, G, 2] and ``trans`` [P, SL, G, 8] packed for a compiled stripe
+    width ``S = SL * G / 32`` with ``G = fwd_lanes(S)``."""
+    B, _ = codes.shape
+    if emis.dim() != 5:
+        raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
+    P, Kp, SL, G, _ = emis.shape
+    n = rows.shape[0]
+    S = SL * G // 32
+    if (S not in STRIPES or G != fwd_lanes(S) or SL * G != 32 * S
+            or Kp > 32):
+        raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
+    check_tensors({"codes": (codes, torch.uint8, None),
+                   "lens": (lens, torch.int32, (B,)),
+                   "lm": (lm, torch.float32, (B, 4)),
+                   "emis": (emis, torch.float32, (P, Kp, SL, G, 2)),
+                   "trans": (trans, torch.float32, (P, SL, G, 8)),
+                   "rows": (rows, torch.int64, (n,)),
+                   "need": (need, torch.bool, (P, n))})
+
+
+def pairs(rows, need, lens=None):
     """Flat pair arrays for the kernels: profile, bucket row and output
     offset (``p * n + column``) of every needed pair, int32 on the
-    device, plus a NEGMASS-filled output [P, n]."""
+    device, plus a NEGMASS-filled output [P, n].  Given the bucket's
+    lengths ``lens``, each profile's pairs are ordered longest first, so
+    the targets that share a warp end on nearby rows."""
     P, n = need.shape
     pc = need.nonzero()
+    if lens is not None:
+        ln = lens[rows[pc[:, 1]]].long()
+        pc = pc[torch.argsort(pc[:, 0] * (1 << 32) - ln)]
     pair_p = pc[:, 0].to(torch.int32).contiguous()
     pair_row = rows[pc[:, 1]].to(torch.int32).contiguous()
     pair_out = (pc[:, 0] * n + pc[:, 1]).to(torch.int32).contiguous()

@@ -19,7 +19,13 @@ warp lane ``l`` reads its ``S`` slots with coalesced loads:
   ``s - 1``; 3 B->M; 4 M->I, 5 I->I within the slot; 6 M->D, 7 D->D out of
   the slot into slot ``s + 1``.  ``NEGMASS`` marks an absent transition;
 * ``fwd_ems`` / ``fwd_eis`` / ``fwd_tr``: the same tables in odds space
-  (``exp``, 0 where absent).
+  (``exp``, 0 where absent), read by the survivor-rows kernel;
+* ``fwd_emis`` [P, Kp, SL, G, 2] and ``fwd_trans`` [P, SL, G, 8]: the
+  odds tables of the Forward filter kernel, packed so that a lane reads
+  one slot's (M, I) emission odds in one 8-byte load and its eight
+  transition odds in two 16-byte loads.  ``G = fwd_lanes(S)`` lanes
+  score one target, each holding a stripe of ``SL = 32 * S / G`` slots
+  (:func:`striped` with ``G`` lanes).
 
 ``SeqDevice`` holds one length bucket of target sequences on an explicit
 device.  The JAX package imports JAX at load, so the packing is
@@ -52,6 +58,13 @@ PAD = 64
 FIELDS = ("msc", "isc", "tMM", "tIM", "tDM", "tMD", "tDD", "tBM", "tMI",
           "tII", "kmask", "xE", "msv_cost", "msv_bias", "msv_tec",
           "msv_tbm", "filter_odds")
+
+
+def fwd_lanes(S: int) -> int:
+    """Lanes per target of the Forward filter kernel for a stripe width
+    ``S`` (``csrc/fwd.cu:fwd_lanes``): 8 up to 128 model slots, 16 up to
+    256, else a whole warp."""
+    return 8 if S <= 4 else 16 if S <= 8 else 32
 
 
 def round_up(x: int, m: int) -> int:
@@ -133,17 +146,26 @@ def _xexp(a: np.ndarray) -> np.ndarray:
                     0.0).astype(np.float32)
 
 
-def striped(a):
-    """[..., Mk] -> [..., S, 32] with element (j, l) = slot l*S + j (a
-    numpy array or a tensor; a view where possible)."""
+def striped(a, lanes: int = 32):
+    """[..., Mk] -> [..., Mk / lanes, lanes] with element (j, l) = slot
+    l * (Mk / lanes) + j (a numpy array or a tensor; a view where
+    possible)."""
     *lead, Mk = a.shape
-    return a.reshape(*lead, 32, Mk // 32).swapaxes(-1, -2)
+    return a.reshape(*lead, lanes, Mk // lanes).swapaxes(-1, -2)
 
 
 def unstriped(t: torch.Tensor) -> torch.Tensor:
-    """The inverse of :func:`striped`: [..., S, 32] -> [..., Mk]."""
-    *lead, S, _ = t.shape
-    return t.swapaxes(-1, -2).reshape(*lead, 32 * S)
+    """The inverse of :func:`striped`: [..., S, lanes] -> [..., Mk]."""
+    *lead, S, lanes = t.shape
+    return t.swapaxes(-1, -2).reshape(*lead, lanes * S)
+
+
+def fwd_unpacked(emis: torch.Tensor, trans: torch.Tensor):
+    """The Forward kernel's packed tables (``fwd_emis``, ``fwd_trans``)
+    as plain [P, Kp, Mk] emission odds (M, I) and [P, 8, Mk] transition
+    odds."""
+    return (unstriped(emis[..., 0]), unstriped(emis[..., 1]),
+            unstriped(trans.movedim(-1, 1)))
 
 
 def kernel_tables(f: dict) -> dict:
@@ -183,12 +205,16 @@ def kernel_tables(f: dict) -> dict:
     tr = np.maximum(tr, NEGMASS)
 
     s = np.ascontiguousarray
+    ems, eis, otr = _xexp(msc), _xexp(isc), _xexp(tr)
+    G = fwd_lanes(Mk // 32)
     return {"msv_w16": s(striped(w16)), "msv_scal": scal,
             "msv_odds": odds, "vit_msc": s(striped(msc)),
             "vit_isc": s(striped(isc)), "vit_tr": s(striped(tr)),
-            "fwd_ems": s(striped(_xexp(msc))),
-            "fwd_eis": s(striped(_xexp(isc))),
-            "fwd_tr": s(striped(_xexp(tr)))}
+            "fwd_ems": s(striped(ems)), "fwd_eis": s(striped(eis)),
+            "fwd_tr": s(striped(otr)),
+            "fwd_emis": s(np.stack([striped(ems, G), striped(eis, G)],
+                                   axis=-1)),
+            "fwd_trans": s(np.moveaxis(striped(otr, G), 1, -1))}
 
 
 class ProfileBatch(nn.Module):

@@ -3,9 +3,11 @@
 :func:`fwd_scores` runs ``csrc/fwd.cu`` on a CUDA tensor and
 :func:`fwd_plain`, the same function in plain PyTorch, on a CPU tensor.
 It replaces the TPU kernels ``pyhmmer_tpu/ops/fwd_pallas.py``
-(``_fwd_pallas3`` and ``_fwd_pallas2``).  Only the (profile, column)
-pairs in ``need`` are scored; the others read NEGMASS.  Everything is
-f32; the plain version uses no matmul, so no TF32 setting applies to it.
+(``_fwd_pallas3``, ``_fwd_pallas2`` and ``_fwd_pallas``).  Only the
+(profile, column) pairs in ``need`` are scored; the others read NEGMASS.
+Both read the packed tables ``fwd_emis`` / ``fwd_trans`` of
+``ops/batch.py``.  Everything is f32; the plain version uses no matmul,
+so no TF32 setting applies to it.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, _pairs
-from .batch import NEGMASS, ProfileBatch, SeqDevice, unstriped
+from .batch import NEGMASS, ProfileBatch, SeqDevice, fwd_unpacked
 
 #: kernel launches made by :func:`fwd_scores` (reset by the caller)
 launches = 0
@@ -24,40 +26,41 @@ TINY = 1e-30
 def forward(pb: ProfileBatch, seq: SeqDevice, rows, need):
     """Forward scores [P, n] in nats for the bucket rows ``rows`` [n]
     (int64) where ``need`` [P, n] is set."""
-    return fwd_scores(seq.codes, seq.lens, seq.lm, pb.fwd_ems, pb.fwd_eis,
-                      pb.fwd_tr, rows, need)
+    return fwd_scores(seq.codes, seq.lens, seq.lm, pb.fwd_emis,
+                      pb.fwd_trans, rows, need)
 
 
-def fwd_scores(codes, lens, lm, ems, eis, tr, rows, need):
+def fwd_scores(codes, lens, lm, emis, trans, rows, need):
     """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``lm`` [B, 4] f32
-    length model; ``ems``/``eis`` [P, Kp, S, 32] f32 emission odds; ``tr``
-    [P, 8, S, 32] f32 transition odds (``ops/batch.py``); ``rows`` [n]
-    int64; ``need`` [P, n] bool.  Returns scores [P, n] f32 nats."""
-    _pairs.check(codes, lens, lm, ems, eis, tr, rows, need)
+    length model; ``emis`` [P, Kp, SL, G, 2] f32 (M, I) emission odds and
+    ``trans`` [P, SL, G, 8] f32 transition odds, packed for ``G`` lanes
+    a target (``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n]
+    bool.  Returns scores [P, n] f32 nats."""
+    _pairs.check_fwd(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type == "cpu":
-        return fwd_plain(codes, lens, lm, ems, eis, tr, rows, need)
+        return fwd_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     global launches
-    Kp, S = ems.shape[1:3]
-    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need)
+    Kp, SL, G = emis.shape[1:4]
+    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, lens)
     npairs = int(pair_p.shape[0])
     P_ = _build.ptr
     err = _build.lib().fwd_launch(
-        P_(codes), codes.shape[1], P_(lens), P_(lm), P_(ems), P_(eis),
-        P_(tr), P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp,
-        S, P_(out), _build.stream_ptr(codes))
+        P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),
+        P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp, SL * G // 32,
+        P_(out), _build.stream_ptr(codes))
     _build.check(err, "fwd_launch")
     launches += 1
     return out
 
 
-def fwd_plain(codes, lens, lm, ems, eis, tr, rows, need):
+def fwd_plain(codes, lens, lm, emis, trans, rows, need):
     """The Forward scan of ``csrc/fwd.cu`` in plain PyTorch, batched over
     [P, n, Mk] with a loop over sequence rows; the D->D chain is a
     Hillis-Steele scan of affine maps."""
     dev = codes.device
-    ems, eis, tr = (unstriped(t) for t in (ems, eis, tr))
+    ems, eis, tr = fwd_unpacked(emis, trans)
     P, Kp, Mk = ems.shape
     n = rows.shape[0]
     out = torch.full((P, n), NEGMASS, dtype=torch.float32, device=dev)

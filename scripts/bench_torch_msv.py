@@ -1,6 +1,8 @@
-"""Time the MSV kernel of checkouts of the PyTorch port in turns.
+"""Time the MSV or the Forward kernel of checkouts of the PyTorch port in
+turns.
 
-    python3 scripts/bench_torch_msv.py ROOT_A ROOT_B [ROOT_C ...] [--out FILE]
+    python3 scripts/bench_torch_msv.py ROOT_A ROOT_B [ROOT_C ...] \
+        [--kernel msv|fwd] [--out FILE]
 
 Each root is a checkout holding ``pyhmmer_tpu_torch`` (for example this
 tree and a ``git archive`` of its parent, unpacked into a directory that
@@ -14,8 +16,22 @@ against the 512 bucket), then one warm and three timed ``SearchEngine.search`` c
 the whole smoke search, whose ``s1_fetched`` stage mark (seconds from
 the end of set-up until the MSV outputs reach the host) it reports with
 the wall time.  ``torch.profiler`` splits each shape's device time by
-kernel name over one more launch.  The card's name and power limit head
-the output; the JSON record of every run goes to ``--out``.
+kernel name over one more launch.
+
+``--kernel fwd`` times ``fwd_cuda.forward`` (the wrapper with its pair
+list, as the engine calls it) instead: first at the launches the main
+path really makes -- the worker wraps ``fwd_cuda.forward`` from outside
+the package for one warm smoke search (``SearchEngine.search``, rows
+off) and records every argument set it was called with -- then at the
+Forward parity shapes of ``chip_smoke.py`` (the same chunks, buckets and
+seeded need masks, and the widest chunk against every lane of the
+longest bucket).  Per launch it reports the pairs, P, Mk, Lmax, the DP
+cells (the sum of M x L over the pairs), the time and the bound
+(``chip_smoke.bound``), then the wall time and ``s2_fetched`` stage mark
+of three more smoke searches.
+
+The card's name and power limit head the output; the JSON record of
+every run goes to ``--out``.
 """
 
 import argparse
@@ -27,6 +43,97 @@ import time
 
 SHAPES = (("big", 512, 20), ("big", 2048, 20), ("huge", 512, 20),
           ("huge", "longest", 3), ("narrow", 512, 20), ("mid", 512, 20))
+
+
+def cuda_ms(fn, reps):
+    """ms per call of ``fn`` over ``reps`` calls after two warm ones."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def worker_fwd(root):
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from pyhmmer_tpu_torch import _synthetic as syn
+    from pyhmmer_tpu_torch import engine as E
+    from pyhmmer_tpu_torch.ops import fwd_cuda
+
+    queries, _, targets, _ = syn.smoke_workload()
+    eng = E.SearchEngine(queries[0].alphabet, device="cuda")
+    eng.search(queries, targets)
+    calls = []
+    real = fwd_cuda.forward
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+    fwd_cuda.forward = spy
+    try:
+        eng.search(queries, targets)
+    finally:
+        fwd_cuda.forward = real
+
+    # the parity shapes of chip_smoke.phase_parity, same seeded masks
+    coalesced = E.group_queries(queries)
+    devs = {b[3].Lmax: b[3] for b in E._Buckets(targets, "cuda").buckets}
+    big = max(coalesced, key=lambda k: len(coalesced[k]))
+    mid = max((k for k in coalesced if 384 < k <= 768),
+              key=lambda k: len(coalesced[k]))
+    huge = max(coalesced)
+    pbs = {Mp: C.chunk_batch(queries, coalesced[Mp], Mp)
+           for Mp in (big, mid, huge)}
+    gen = torch.Generator().manual_seed(0)
+    parity = []
+    for Mp, Lmax in ((big, 512), (big, 2048), (mid, 512)):
+        pb, dev = pbs[Mp], devs[Lmax]
+        cols = torch.arange(0, dev.B, 8, device="cuda")
+        need = torch.rand((pb.P, len(cols)), generator=gen) < 0.25
+        parity.append(("parity", pb, dev, cols, need.to("cuda"), 20))
+    pb, dev = pbs[huge], devs[max(devs)]
+    parity.append(("parity", pb, dev, torch.arange(dev.B, device="cuda"),
+                   torch.ones((pb.P, dev.B), dtype=torch.bool,
+                              device="cuda"), 3))
+
+    out = {"root": root, "launches": []}
+    for kind, pb, dev, rows, need, reps in (
+            [("main", *c, 20) for c in calls] + parity):
+        ms = cuda_ms(lambda: fwd_cuda.forward(pb, dev, rows, need), reps)
+        lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[rows.cpu()]
+        M = torch.as_tensor(pb.M, dtype=torch.float64)
+        cells = float((M[:, None] * lens[None, :])[need.cpu()].sum())
+        # the packed tables hold the bytes of the striped ones
+        args = (dev.codes, dev.lens, dev.lm, pb.fwd_ems, pb.fwd_eis,
+                pb.fwd_tr, rows, need)
+        res = torch.empty(need.shape, dtype=torch.float32)
+        out["launches"].append(dict(
+            kind=kind, npairs=int(need.sum()), P=pb.P, Mk=32 * pb.S,
+            Lmax=dev.Lmax, n=int(rows.shape[0]), cells=cells, ms=ms,
+            reps=reps, **C.bound(C.FILTER_FLOPS * cells / C.F32_RATE, args,
+                                 (res,))))
+    out["s2_fetched_s"], out["wall_s"] = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        eng.search(queries, targets)
+        torch.cuda.synchronize()
+        out["wall_s"].append(time.time() - t)
+        out["s2_fetched_s"].append(eng.last_timing["s2_fetched"])
+    out["main_ms_total"] = float(np.sum([r["ms"] for r in out["launches"]
+                                         if r["kind"] == "main"]))
+    print(json.dumps(out), flush=True)
 
 
 def worker(root):
@@ -97,10 +204,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--worker")
+    ap.add_argument("--kernel", choices=("msv", "fwd"), default="msv")
     ap.add_argument("--out")
     args = ap.parse_args()
     if args.worker:
-        worker(os.path.abspath(args.worker))
+        {"msv": worker, "fwd": worker_fwd}[args.kernel](
+            os.path.abspath(args.worker))
         return
     roots = [os.path.abspath(r) for r in args.roots]
     smi = subprocess.run(
@@ -111,8 +220,8 @@ def main():
     runs = []
     for root in roots + roots[::-1]:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", root], capture_output=True,
-                             text=True, timeout=900)
+                              "--worker", root, "--kernel", args.kernel],
+                             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             sys.exit(f"run on {root} failed:\n{res.stderr[-3000:]}")
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
@@ -121,7 +230,8 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": smi, "runs": runs}, fh, indent=1)
+            json.dump({"card": smi, "kernel": args.kernel, "runs": runs},
+                      fh, indent=1)
 
 
 if __name__ == "__main__":

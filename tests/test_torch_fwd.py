@@ -4,8 +4,12 @@
 within 0.05 nats, on padded widths on both sides of 384 and 768 (the
 JAX engine's Forward routes) and with a ``need`` mask holding dead
 pairs; on the two narrower stacks also against the v1 Pallas Forward
-(``fwd_pallas._fwd_pallas``, in interpret mode).  On the CPU the wrapper
-runs the kernel's plain version."""
+(``fwd_pallas._fwd_pallas``, in interpret mode).  The same bars hold on
+widths on both sides of each step of the kernel's lanes per target (8
+up to 128 slots, 16 up to 256, then 32) against lanes of 20 to 500
+residues.  On the CPU the wrapper runs the kernel's plain version over
+the packed tables; the kernel's pair order (each profile's pairs
+longest first) keeps every score in its place."""
 
 import os
 import sys
@@ -26,7 +30,7 @@ from pyhmmer_tpu.plan7.background import Background  # noqa: E402
 from pyhmmer_tpu.plan7.profile import Profile  # noqa: E402
 from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
 from pyhmmer_tpu_torch.ops import batch as TB  # noqa: E402
-from pyhmmer_tpu_torch.ops import fwd_cuda  # noqa: E402
+from pyhmmer_tpu_torch.ops import _pairs, fwd_cuda  # noqa: E402
 from pyhmmer_tpu_torch.plan7 import Background as TBackground  # noqa: E402
 from pyhmmer_tpu_torch.plan7 import Profile as TProfile  # noqa: E402
 from test_torch_host import jax_hmm  # noqa: E402
@@ -38,6 +42,11 @@ torch.set_num_threads(1)
 STACKS = [((60, 200, 330), 352), ((400,), 416), ((700,), 736),
           ((790,), 800)]
 N, LMAX, BAR = 36, 160, 0.05
+#: widths on both sides of each step of ``batch.fwd_lanes`` (G = 8, 8, 8,
+#: 16, 16, 32 lanes a target)
+NARROW = [((40, 60), 64), ((70, 90), 96), ((100, 120), 128),
+          ((150, 180), 192), ((200, 250), 256), ((400,), 416)]
+NARROW_N = 14
 
 
 def port_profiles(models):
@@ -123,3 +132,128 @@ def test_no_needed_pair_is_a_no_op(case):
     need = torch.zeros((tpb.P, 4), dtype=torch.bool)
     out = fwd_cuda.forward(tpb, case.dev, rows, need)
     assert out.shape == (tpb.P, 4) and (out == TB.NEGMASS).all()
+
+
+def uneven_lanes(models, n, seed):
+    """``n`` lanes of 20 to 500 background residues (Lmax 512), the first
+    ones each holding a planted domain of one model."""
+    aa = models[0].alphabet
+    rng = np.random.default_rng(seed)
+    f = np.asarray(TBackground(aa).residue_frequencies, np.float64)
+    f = f / f.sum()
+    lengths = rng.permutation(np.linspace(20, 500, n).astype(np.int64))
+    codes = np.full((n, 512), aa.nonresidue_code, dtype=np.uint8)
+    for j, h in enumerate(models):
+        lengths[j] = min(500, max(lengths[j], h.M + 40))
+    for i, L in enumerate(lengths):
+        codes[i, :L] = rng.choice(len(f), size=int(L), p=f)
+    for j, h in enumerate(models):
+        dom = syn.plant(h, rng, 0.5)[: lengths[j] - 10]
+        codes[j, 5: 5 + len(dom)] = dom
+    return codes, lengths
+
+
+@pytest.fixture(scope="module", params=NARROW, ids=lambda s: f"Mp{s[1]}")
+def narrow(request):
+    Ms, Mp = request.param
+    models = syn.sample_models(Ms, seed=Mp + 1)
+    hmms = [jax_hmm(h) for h in models]
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    profs = [Profile(h.M, aa).configure(h, bg, 400, multihit=True)
+             for h in hmms]
+    codes, lengths = uneven_lanes(models, NARROW_N, seed=Mp)
+    jax_all = JB.forward_scores(JB.ProfileBatch(profs, Mp=Mp), codes,
+                                lengths)
+    tpb = TB.ProfileBatch(port_profiles(models), Mp=Mp)
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code)
+    rng = np.random.default_rng(Mp + 3)
+    rows = rng.permutation(NARROW_N)
+    need = rng.random((len(Ms), NARROW_N)) < 0.7
+    need[:, 1] = False                     # a column nobody needs
+    need[0, 0] = True
+    out = fwd_cuda.forward(tpb, dev, torch.from_numpy(rows),
+                           torch.from_numpy(need)).numpy()
+    return SimpleNamespace(hmms=hmms, bg=bg, codes=codes, lengths=lengths,
+                           rows=rows, need=need, out=out, tpb=tpb,
+                           jax=jax_all[:, rows])
+
+
+def test_narrow_matches_xla_forward_scan(narrow):
+    """The plain version over the packed tables against the JAX
+    package's XLA scan; dead pairs read NEGMASS."""
+    assert (narrow.out[~narrow.need] == TB.NEGMASS).all()
+    live = narrow.need & (narrow.jax > -1e29)
+    assert np.array_equal(narrow.out > -1e29, live)
+    err = np.abs(narrow.out - narrow.jax)[live]
+    assert err.max() < BAR, err.max()
+
+
+def test_narrow_matches_float64_oracle(narrow):
+    """The shortest, the longest and a planted lane of each profile
+    against ``ops.reference.forward``."""
+    lens = narrow.lengths[narrow.rows]
+    checked = 0
+    for pi, h in enumerate(narrow.hmms):
+        cols = np.where(narrow.need[pi])[0]
+        picks = {cols[np.argmin(lens[cols])], cols[np.argmax(lens[cols])]}
+        picks |= set(cols[narrow.rows[cols] == pi])
+        for col in picks:
+            b = narrow.rows[col]
+            L = int(narrow.lengths[b])
+            prof = Profile(h.M, h.alphabet).configure(h, narrow.bg, L)
+            want = ref.forward(prof, narrow.codes[b, :L]).score
+            assert abs(narrow.out[pi, col] - want) < BAR, (pi, b)
+            checked += 1
+    assert checked >= 2 * len(narrow.hmms)
+
+
+def test_packed_tables_hold_the_odds_tables(narrow):
+    """``fwd_emis`` / ``fwd_trans`` are the rows kernel's striped odds
+    tables, packed for ``G = fwd_lanes(S)`` lanes: lane l holds slots
+    l*SL .. l*SL+SL-1, slot j's (M, I) odds of a residue side by side
+    and its 8 transition odds side by side."""
+    tpb = narrow.tpb
+    P, Kp, SL, G, two = tpb.fwd_emis.shape
+    assert (G, SL * G, two) == (TB.fwd_lanes(tpb.S), 32 * tpb.S, 2)
+    assert tpb.fwd_trans.shape == (P, SL, G, 8)
+    ems, eis, tr = TB.fwd_unpacked(tpb.fwd_emis, tpb.fwd_trans)
+    assert torch.equal(ems, TB.unstriped(tpb.fwd_ems))
+    assert torch.equal(eis, TB.unstriped(tpb.fwd_eis))
+    assert torch.equal(tr, TB.unstriped(tpb.fwd_tr))
+    lane, j = G - 1, SL - 1
+    assert tpb.fwd_trans[0, j, lane, 6] == tr[0, 6, lane * SL + j]
+    assert tpb.fwd_emis[0, 3, j, lane, 1] == eis[0, 3, lane * SL + j]
+
+
+def test_pairs_ordered_longest_first_keep_their_places():
+    """With the bucket's lengths the pair list is profile-major, each
+    profile's pairs longest first, and every needed (profile, column)
+    appears once with its own profile, row and output offset (profile 0
+    has 5 pairs, so a group of 4 targets spans a profile boundary)."""
+    rng = np.random.default_rng(7)
+    P, B, n = 3, 40, 30
+    lens = torch.from_numpy(rng.integers(20, 501, B).astype(np.int32))
+    rows = torch.from_numpy(rng.permutation(B)[:n].astype(np.int64))
+    need = torch.from_numpy(rng.random((P, n)) < 0.5)
+    need[0] = False
+    need[0, torch.from_numpy(rng.permutation(n)[:5])] = True
+    need[:, 3] = False
+    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, lens)
+    flat = need.flatten().nonzero().flatten()
+    assert sorted(pair_out.tolist()) == flat.tolist()
+    po = pair_out.long()
+    assert torch.equal(pair_p.long(), po // n)
+    assert torch.equal(pair_row.long(), rows[po % n])
+    assert bool((pair_p[1:] >= pair_p[:-1]).all())
+    L = lens[pair_row.long()]
+    same = pair_p[1:] == pair_p[:-1]
+    assert bool((L[1:][same] <= L[:-1][same]).all())
+    groups = pair_p[: len(pair_p) // 4 * 4].view(-1, 4)
+    assert bool((groups[:, 0] != groups[:, -1]).any())
+    out.view(-1)[po] = po.float()
+    want = torch.where(need, torch.arange(P * n).view(P, n).float(),
+                       torch.tensor(TB.NEGMASS))
+    assert torch.equal(out, want)
+    # without lengths: the order of need.nonzero() (the Viterbi wrapper)
+    assert torch.equal(_pairs.pairs(rows, need)[2].long(), flat)

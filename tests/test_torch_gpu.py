@@ -141,7 +141,7 @@ def test_msv_overflow_stack_and_long_lanes(cuda):
 def test_survivor_kernels_match_plain(case, name):
     mod, fn, plain, tol, tabs = {
         "fwd": (fwd_cuda, fwd_cuda.fwd_scores, fwd_cuda.fwd_plain, FWD_TOL,
-                ("fwd_ems", "fwd_eis", "fwd_tr")),
+                ("fwd_emis", "fwd_trans")),
         "vit": (vit_cuda, vit_cuda.vit_scores, vit_cuda.vit_plain, VIT_TOL,
                 ("vit_msc", "vit_isc", "vit_tr"))}[name]
     dev = case.dev
@@ -157,6 +157,42 @@ def test_survivor_kernels_match_plain(case, name):
     live = case.need & (p > -1e29)
     assert torch.equal(k > -1e29, live)
     assert (k - p)[live].abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("Ms,Mp", [((12, 30), 32), ((20, 50, 60), 64),
+                                   ((70, 90), 96), ((110, 120), 128),
+                                   ((150, 170, 190), 192),
+                                   ((200, 250), 256)],
+                         ids=["Mk32", "Mk64", "Mk96", "Mk128", "Mk192",
+                              "Mk256"])
+def test_fwd_narrow_widths(cuda, Ms, Mp):
+    """The widths at which a warp scores several targets (8 lanes a
+    target up to 128 slots, 16 up to 256), on 61 lanes of 1 to 500
+    residues, so a warp's targets end on different rows, with a random
+    need mask, so profile boundaries fall inside warps."""
+    hmms = syn.sample_models(Ms, seed=Mp + 11)
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                     multihit=True)
+                          for h in hmms], Mp=Mp).to(cuda)
+    codes, lengths = syn.make_lanes(hmms, 61, 500, seed=Mp + 13)
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    gen = torch.Generator().manual_seed(Mp)
+    rows = torch.randperm(61, generator=gen).to(cuda)
+    need = (torch.rand((len(Ms), 61), generator=gen) < 0.6).to(cuda)
+    args = (dev.codes, dev.lens, dev.lm, pb.fwd_emis, pb.fwd_trans, rows,
+            need)
+    before = fwd_cuda.launches
+    k = fwd_cuda.fwd_scores(*args)
+    assert fwd_cuda.launches == before + 1
+    p = fwd_cuda.fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (k[~need] == TB.NEGMASS).all()
+    live = need & (p > -1e29)
+    assert torch.equal(k > -1e29, live)
+    assert (k - p)[live].abs().max().item() <= FWD_TOL
 
 
 def test_wrapper_rejects_mixed_devices(case):
