@@ -128,8 +128,7 @@ def ptxas_summary(report):
     """{kernel or kernel<template arguments>: registers, static shared
     memory and spill bytes} from the ``-Xptxas -v`` report
     (``msv_kernel`` also takes Kp * ceil(S/2) * 128 bytes of dynamic
-    shared memory at launch; ``fwd_kernel<G,SL>`` runs G lanes a target,
-    SL slots a lane)."""
+    shared memory at launch)."""
     out, name = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:

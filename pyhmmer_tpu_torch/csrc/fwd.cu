@@ -13,192 +13,331 @@
 // w_e; here D is computed explicitly).  Per-target length model: loop
 // odds L/(L+3), move odds 3/(L+3).
 //
-// Layout: G lanes score one (profile, target) pair, T = 32 / G pairs a
-// warp; lane l of a group holds the stripe of SL = Mk / G slots
-// l*SL .. l*SL+SL-1 in registers (M, I and D).  The D->D chain d[s+1] =
-// m[s] * tMD + d[s] * tDD is an exact O(Mk) linear recurrence: each lane
-// runs it over its stripe with 0 entering (the partial row dl), a log2 G
-// step scan composes the stripes' affine maps d_out = d_in * A + dl, and
-// the value entering the stripe is added back as d_in * pre[j] (pre[j]:
-// the product of the stripe's tDD before slot j).  A, pre[j] and the
-// scan's multipliers depend on the model only and are computed once.
-// (The TPU kernels applied an O(Mk^2) transfer matrix per row because
-// the MXU made it cheap; the scan does O(Mk) work.)
+// Layout: one warp scores one (profile, target) pair; lane l holds the
+// stripe of S = Mk / 32 model slots l*S .. l*S+S-1 in registers (M, I
+// and D).  The D->D chain d[s+1] = m[s] * tMD + d[s] * tDD is an exact
+// O(Mk) linear recurrence: each lane runs it over its stripe with 0
+// entering (the partial row dl), one 5-step warp scan composes the
+// stripes' affine maps and sums E at the same time (below), and the
+// value entering the stripe is added back as d_in * pre[j] (pre[j]: the
+// product of the stripe's tDD before slot j).  pre[j] and the scan's
+// multipliers depend on the model only: they are computed once per pair
+// (in double, then rounded).  (The
+// TPU kernels applied an O(Mk^2) transfer matrix per row because the MXU
+// made it cheap; the scan does O(Mk) work.)
 //
-// Bound on this card: instruction issue and, in the long buckets, each
-// row's latency chain -- not bytes.  Per slot and row a lane does about
-// 8 FMAs of the recurrence; the first version of this kernel (one warp a
-// pair, one table per transition) also issued 10-12 loads per slot and
-// row, and a fixed per-row cost (about 16 shuffles for the stripe edge,
-// the scan and the E sum, a division and a logf) that at 3 slots a lane
-// (the Mk96 models, the most populous) came to more instructions than the
-// recurrence.  The design against that:
+// Bound on this card: the latency of each row's dependency chain -- not
+// bytes, and not instruction issue.  The stage-2 launches of a search
+// hold a few hundred to a few thousand pairs (the survivors of stage 1),
+// so the card holds every warp at once and most SMs run a few warps: a
+// row's shuffles, loads and serial adds are not hidden.  The first
+// version of this kernel issued 10-12 loads per slot and row and, per
+// row, 11 shuffles in series (a 5-step scan with two shuffles a step, the
+// D edge, a 5-step E sum), a division, and the stripe's D chain twice.
+// The design against that:
 //
-// * Packed tables (ops/batch.py: fwd_emis, fwd_trans): a slot's eight
-//   transition odds sit together, two float4 loads, and its M and I
-//   emission odds for one residue one float2 load: 3 loads a slot-row.
-// * G = 8 lanes for models up to 128 slots, 16 up to 256, else 32
-//   (fwd_lanes): the shuffles take width G, the scan has log2 G steps,
-//   and the fixed per-row work is paid once for T targets (at Mk96 a
-//   lane holds 12 slots, not 3).  Each target keeps its own scalars (N,
-//   B, J, C and the log scale), replicated over its G lanes; past its
-//   length a target reads code 0 and its scalars stop, while the other
-//   targets of the warp run on.  The wrapper (ops/_pairs.py:pairs) orders
-//   each profile's pairs longest first, so the targets of a warp end on
-//   nearby rows and usually share a profile, whose transition loads then
-//   broadcast; at a profile boundary each group reads its own profile.
-// * The row-invariant D->D terms (A, pre, the scan multipliers) are
-//   computed once per pair instead of once per row.
+// * Packed tables (ops/batch.py: fwd_emis, fwd_trans): one slot's M and
+//   I emission odds for one residue in one float2 load, its eight
+//   transition odds in two float4 loads, each contiguous over the warp;
+//   models up to 256 slots keep their transitions in registers, so a row
+//   loads only its emissions, and up to 512 slots the next row's
+//   emissions are loaded before this row's DP, off the chain.
+// * One scan instead of two: for a window of lanes, the map from the D
+//   value x entering it to (D leaving it, the window's share of E) is
+//   (x A + B, x W + C); step k joins the window 2^k lanes below with
+//   B += B' A, C += C' + B' W, where A and W do not depend on the row.
+//   6 shuffles in series a row instead of 11, and the stripe's D chain
+//   is run once.
+// * The stripe's E terms go to four partial sums, not one serial chain;
+//   1/max is an approximate reciprocal (the score adds the log of the
+//   factor that was applied, so its rounding does not reach the score).
+//
+// Models of 32 slots a lane and more take fwd_wide_kernel (below).
+//
+// Several targets a warp (8 or 16 lanes a target for narrow models, as
+// msv.cu does) was built and measured: it won only at the launches with
+// more than about 4,000 pairs and lost at the others, since a latency-
+// bound launch with fewer warps hides less (PERF.md, PR 5).
 
 #include "common.cuh"
 
 constexpr float TINY = 1e-30f;
+// stripe width from which fwd_wide_kernel runs (ops/batch.py:FWD_WIDE_S)
+constexpr int FWD_WIDE_S = 32;
 
-// Lanes per (profile, target) pair for a model of 32 * S slots
-// (ops/batch.py:fwd_lanes must match).
-__host__ __device__ constexpr int fwd_lanes(int S) {
-  return S <= 4 ? 8 : S <= 8 ? 16 : 32;
-}
-
-__host__ __device__ constexpr int log2_of(int n) {
-  return n <= 1 ? 0 : 1 + log2_of(n / 2);
-}
-
-template <int G, int SL>
+template <int S>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 fwd_kernel(const uint8_t* __restrict__ codes, int Lmax,
            const int* __restrict__ lens, const float* __restrict__ lm,
-           const float2* __restrict__ emis,   // [P, Kp, SL, G] (M, I) odds
-           const float4* __restrict__ trans,  // [P, SL, G, 2]: 8 odds a slot
+           const float2* __restrict__ emis,   // [P, Kp, S, 32] (M, I) odds
+           const float4* __restrict__ trans,  // [P, S, 2, 32] 8 odds a slot
            const int* __restrict__ pair_p, const int* __restrict__ pair_row,
            const int* __restrict__ pair_out, int npairs, int Kp,
            float* __restrict__ out) {
-  constexpr int T = 32 / G;      // targets per warp
-  constexpr int LG = log2_of(G);  // steps of the group scan and sum
-  // pre[j] in registers; wider stripes recompute it from tDD every row
-  constexpr bool PRE_REGS = SL <= 24;
-  const int q0 = (blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5)) * T;
-  if (q0 >= npairs) return;  // the whole warp leaves together
+  constexpr bool TR_REGS = S <= 8;     // transitions in registers
+  constexpr bool PRE_REGS = S <= 16;   // pre[j] in registers
+  constexpr bool PREFETCH = S <= 16;   // next row's emissions ahead
+  constexpr int NACC = S >= 8 ? 4 : 1;  // partial sums of E
+  const int w = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  if (w >= npairs) return;
   const int lane = threadIdx.x & 31;
-  const int hl = lane & (G - 1);  // lane within the target's group
-  const int q = q0 + lane / G;
-  const bool valid = q < npairs;
-  const int qv = valid ? q : q0;
-  const int p = pair_p[qv], row = pair_row[qv];
-  const int L = valid ? lens[row] : 0;
-  int Lrun = L;  // the warp runs to its longest target
-#pragma unroll
-  for (int o = G; o < 32; o <<= 1)
-    Lrun = max(Lrun, __shfl_xor_sync(FULL_MASK, Lrun, o));
+  const int p = pair_p[w], row = pair_row[w];
+  const int L = lens[row];
   const float loop = lm[row * 4 + 0], move = lm[row * 4 + 1];
   const float log_move = lm[row * 4 + 3];
-  // slot j of this lane: transitions TR[2 j G] (tMM, tIM, tDM, tBM) and
-  // TR[2 j G + 1] (tMI, tII, tMD, tDD); emissions of code x EM[(x SL + j) G]
-  const float4* TR = trans + ((size_t)p * SL * G + hl) * 2;
-  const float2* EM = emis + (size_t)p * Kp * SL * G + hl;
-  auto tdd = [&](int j) {
-    return __ldg(reinterpret_cast<const float*>(TR + 2 * j * G + 1) + 3);
+  // slot j of this lane: transitions TR[64 j] (tMM, tIM, tDM, tBM) and
+  // TR[64 j + 32] (tMI, tII, tMD, tDD); emissions of code x EM[32 (x S + j)]
+  const float4* TR = trans + (size_t)p * S * 64 + lane;
+  const float2* EM = emis + (size_t)p * Kp * S * 32 + lane;
+  float4 tra[TR_REGS ? S : 1], trb[TR_REGS ? S : 1];
+  if constexpr (TR_REGS) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      tra[j] = __ldg(TR + 64 * j);
+      trb[j] = __ldg(TR + 64 * j + 32);
+    }
+  }
+  auto ta = [&](int j) {
+    if constexpr (TR_REGS) return tra[j];
+    else return __ldg(TR + 64 * j);
+  };
+  auto tb = [&](int j) {
+    if constexpr (TR_REGS) return trb[j];
+    else return __ldg(TR + 64 * j + 32);
+  };
+  auto load_emis = [&](int x, float2* e) {
+    const float2* ex = EM + (size_t)x * S * 32;
+#pragma unroll
+    for (int j = 0; j < S; ++j) e[j] = __ldg(ex + 32 * j);
   };
 
-  // the row-invariant D->D terms
-  float pre[PRE_REGS ? SL : 1];
-  float A = 1.f, spre = 0.f;
+  // the row-invariant D->D terms (in double, rounded once): pre[j]; the
+  // stripe's product A and the sum W of pre; the scan's multipliers
+  float pre[PRE_REGS ? S : 1];
+  double A = 1.0, W = 0.0;
 #pragma unroll
-  for (int j = 0; j < SL; ++j) {
-    if constexpr (PRE_REGS) pre[j] = A;
-    spre += A;
-    A *= tdd(j);
+  for (int j = 0; j < S; ++j) {
+    if constexpr (PRE_REGS) pre[j] = (float)A;
+    W += A;
+    A *= tb(j).w;
   }
-  // scan step k combines with the group lane 2^k below: dl += dl' * amul
-  // (0 where there is none, so the step needs no branch)
-  float amul[LG];
+  float amul[5], wmul[5], cmul[5];
 #pragma unroll
-  for (int k = 0; k < LG; ++k) {
-    const float Ap = __shfl_up_sync(FULL_MASK, A, 1 << k, G);
-    amul[k] = hl >= (1 << k) ? A : 0.f;
-    if (hl >= (1 << k)) A *= Ap;
+  for (int k = 0; k < 5; ++k) {
+    const double Ap = __shfl_up_sync(FULL_MASK, A, 1 << k);
+    const double Wp = __shfl_up_sync(FULL_MASK, W, 1 << k);
+    const bool has = lane >= (1 << k);  // 0 where there is none: no branch
+    amul[k] = has ? (float)A : 0.f;
+    wmul[k] = has ? (float)W : 0.f;
+    cmul[k] = has ? 1.f : 0.f;
+    if (has) {
+      W = W * Ap + Wp;
+      A *= Ap;
+    }
   }
 
-  float m[SL], iv[SL], d[SL];
+  float m[S], iv[S], d[S];
 #pragma unroll
-  for (int j = 0; j < SL; ++j) m[j] = iv[j] = d[j] = 0.f;
+  for (int j = 0; j < S; ++j) m[j] = iv[j] = d[j] = 0.f;
   float xN = 1.f, xB = move, xJ = 0.f, xC = 0.f, lsc = 0.f;
 
   const uint8_t* seq = codes + (size_t)row * Lmax;
-  for (int i0 = 0; i0 < Lrun; i0 += G) {
-    const int nr = min(G, Lrun - i0);
-    // past its own length a target reads code 0 and its scalars stop
-    const int mycode = i0 + hl < L ? (int)seq[i0 + hl] : 0;
+  for (int i0 = 0; i0 < L; i0 += 32) {
+    const int nr = min(32, L - i0);
+    const int mycode = lane < nr ? (int)seq[i0 + lane] : 0;
+    float2 ec[S];
+    if constexpr (PREFETCH) load_emis(__shfl_sync(FULL_MASK, mycode, 0), ec);
     for (int r = 0; r < nr; ++r) {
-      const int x = __shfl_sync(FULL_MASK, mycode, r, G);
-      const float2* ex = EM + (size_t)x * SL * G;
-      float pm = __shfl_up_sync(FULL_MASK, m[SL - 1], 1, G);
-      float pi = __shfl_up_sync(FULL_MASK, iv[SL - 1], 1, G);
-      float pd = __shfl_up_sync(FULL_MASK, d[SL - 1], 1, G);
-      if (hl == 0) pm = pi = pd = 0.f;
+      // the next row's emissions, off this row's dependency chain (the
+      // last row of a block loads one it does not use)
+      float2 en[PREFETCH ? S : 1];
+      if constexpr (PREFETCH)
+        load_emis(__shfl_sync(FULL_MASK, mycode, (r + 1) & 31), en);
+      else
+        load_emis(__shfl_sync(FULL_MASK, mycode, r), ec);
+      float pm = __shfl_up_sync(FULL_MASK, m[S - 1], 1);
+      float pi = __shfl_up_sync(FULL_MASK, iv[S - 1], 1);
+      float pd = __shfl_up_sync(FULL_MASK, d[S - 1], 1);
+      if (lane == 0) pm = pi = pd = 0.f;
       // M and I from the previous row; D with 0 entering the stripe
-      float dl = 0.f, esum = 0.f;
+      float dl = 0.f, es[NACC];
 #pragma unroll
-      for (int j = 0; j < SL; ++j) {
-        const float4 ta = __ldg(TR + 2 * j * G);
-        const float4 tb = __ldg(TR + 2 * j * G + 1);
-        const float2 e = __ldg(ex + j * G);
+      for (int k = 0; k < NACC; ++k) es[k] = 0.f;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const float4 a = ta(j), b = tb(j);
+        const float2 e = ec[j];
         const float om = m[j], oi = iv[j], od = d[j];
-        const float nm =
-            e.x * (pm * ta.x + pi * ta.y + pd * ta.z + xB * ta.w);
+        const float nm = e.x * (pm * a.x + pi * a.y + pd * a.z + xB * a.w);
         m[j] = nm;
-        iv[j] = e.y * (om * tb.x + oi * tb.y);
+        iv[j] = e.y * (om * b.x + oi * b.y);
         d[j] = dl;
-        esum += nm + dl;
-        dl = dl * tb.w + nm * tb.z;
+        es[j % NACC] += nm + dl;
+        dl = dl * b.w + nm * b.z;
         pm = om;
         pi = oi;
         pd = od;
       }
-      // compose the stripes' maps over the group: what enters each stripe
+      float C = es[0];
 #pragma unroll
-      for (int k = 0; k < LG; ++k)
-        dl = fmaf(__shfl_up_sync(FULL_MASK, dl, 1 << k, G), amul[k], dl);
-      float dd = __shfl_up_sync(FULL_MASK, dl, 1, G);
-      if (hl == 0) dd = 0.f;
-      float e = fmaf(dd, spre, esum);
+      for (int k = 1; k < NACC; ++k) C += es[k];
 #pragma unroll
-      for (int o = 1; o < G; o <<= 1)
-        e += __shfl_xor_sync(FULL_MASK, e, o, G);
+      for (int k = 0; k < 5; ++k) {
+        const float Bp = __shfl_up_sync(FULL_MASK, dl, 1 << k);
+        const float Cp = __shfl_up_sync(FULL_MASK, C, 1 << k);
+        C = fmaf(cmul[k], Cp, fmaf(wmul[k], Bp, C));
+        dl = fmaf(amul[k], Bp, dl);
+      }
+      float dd = __shfl_up_sync(FULL_MASK, dl, 1);  // D entering the stripe
+      if (lane == 0) dd = 0.f;
+      const float e = __shfl_sync(FULL_MASK, C, 31);  // E of the row
       const float nj = xJ * loop + e * 0.5f;
       const float nc = xC * loop + e * 0.5f;
       const float nn = xN * loop;
       const float nb = (nn + nj) * move;
       const float mx = fmaxf(fmaxf(fmaxf(e, nj), fmaxf(nc, nn)), TINY);
-      const float inv = 1.f / mx;
+      const float inv = __fdividef(1.f, mx);
       // the D row (what enters the stripe added back), then the rescale
       if constexpr (PRE_REGS) {
 #pragma unroll
-        for (int j = 0; j < SL; ++j) {
+        for (int j = 0; j < S; ++j) {
           m[j] *= inv;
           iv[j] *= inv;
           d[j] = fmaf(dd, pre[j], d[j]) * inv;
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < SL; ++j) {
+        for (int j = 0; j < S; ++j) {
           m[j] *= inv;
           iv[j] *= inv;
           d[j] = (d[j] + dd) * inv;
-          dd *= tdd(j);
+          dd *= tb(j).w;
         }
       }
-      if (i0 + r < L) {
-        lsc += logf(mx);
-        xJ = nj * inv;
-        xC = nc * inv;
-        xN = nn * inv;
-        xB = nb * inv;
+      lsc -= logf(inv);
+      xJ = nj * inv;
+      xC = nc * inv;
+      xN = nn * inv;
+      xB = nb * inv;
+      if constexpr (PREFETCH) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) ec[j] = en[j];
       }
     }
   }
-  if (hl == 0 && valid)
-    out[pair_out[q]] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
+  if (lane == 0)
+    out[pair_out[w]] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
+}
+
+// Models of 32 slots a lane and more (Mk >= 1024): the first version of
+// this kernel (two passes over the stripe, a 5-step scan and a 5-step E
+// sum), over the wide layout of the packed tables (emis [P, Kp, 2, S,
+// 32]: the M then the I odds of a residue, striped; trans [P, 8, S, 32]:
+// one striped table per transition).  There one profile's tables (270 KB
+// at Mk1024) exceed L1.  fwd_kernel at S = 32 was 6-10% faster at the
+// smoke search's Mk1024 launches but a third slower on a 35,000-residue
+// target (PERF.md, PR 5), so wide models keep this loop.
+template <int S>
+__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+fwd_wide_kernel(const uint8_t* __restrict__ codes, int Lmax,
+                const int* __restrict__ lens, const float* __restrict__ lm,
+                const float* __restrict__ emis,  // [P, Kp, 2, S, 32] odds
+                const float* __restrict__ tr,    // [P, 8, S, 32] odds
+                const int* __restrict__ pair_p,
+                const int* __restrict__ pair_row,
+                const int* __restrict__ pair_out, int npairs, int Kp,
+                float* __restrict__ out) {
+  const int w = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  if (w >= npairs) return;
+  const int lane = threadIdx.x & 31;
+  const int p = pair_p[w], row = pair_row[w];
+  const int L = lens[row];
+  const float loop = lm[row * 4 + 0], move = lm[row * 4 + 1];
+  const float log_move = lm[row * 4 + 3];
+  const float* T = tr + (size_t)p * 8 * S * 32 + lane;
+  const float* MS = emis + (size_t)p * Kp * 2 * S * 32 + lane;
+  const float* IS = MS + S * 32;
+#define TR(t, j) __ldg(T + ((t) * S + (j)) * 32)
+
+  float m[S], iv[S], d[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) m[j] = iv[j] = d[j] = 0.f;
+  float xN = 1.f, xB = move, xJ = 0.f, xC = 0.f, lsc = 0.f;
+
+  const uint8_t* seq = codes + (size_t)row * Lmax;
+  for (int i0 = 0; i0 < L; i0 += 32) {
+    const int nr = min(32, L - i0);
+    const int mycode = lane < nr ? (int)seq[i0 + lane] : 0;
+    for (int r = 0; r < nr; ++r) {
+      const int x = __shfl_sync(FULL_MASK, mycode, r);
+      const float* ms = MS + x * 2 * S * 32;
+      const float* is = IS + x * 2 * S * 32;
+      float cm = __shfl_up_sync(FULL_MASK, m[S - 1], 1);
+      float ci = __shfl_up_sync(FULL_MASK, iv[S - 1], 1);
+      float cd = __shfl_up_sync(FULL_MASK, d[S - 1], 1);
+      if (lane == 0) cm = ci = cd = 0.f;
+#pragma unroll
+      for (int j = S - 1; j >= 0; --j) {
+        const float pm = j ? m[j - 1] : cm;
+        const float pi = j ? iv[j - 1] : ci;
+        const float pd = j ? d[j - 1] : cd;
+        const float nm = __ldg(ms + j * 32) *
+                         (pm * TR(0, j) + pi * TR(1, j) + pd * TR(2, j) +
+                          xB * TR(3, j));
+        const float ni = __ldg(is + j * 32) * (m[j] * TR(4, j) +
+                                               iv[j] * TR(5, j));
+        m[j] = nm;
+        iv[j] = ni;
+      }
+      // D chain, pass 1: this stripe's map d_out = d_in * A + Bv
+      float A = 1.f, Bv = 0.f;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        Bv = m[j] * TR(6, j) + Bv * TR(7, j);
+        A *= TR(7, j);
+      }
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float Ap = __shfl_up_sync(FULL_MASK, A, o);
+        const float Bp = __shfl_up_sync(FULL_MASK, Bv, o);
+        if (lane >= o) {
+          Bv = Bp * A + Bv;
+          A = Ap * A;
+        }
+      }
+      float dd = __shfl_up_sync(FULL_MASK, Bv, 1);
+      if (lane == 0) dd = 0.f;
+      // pass 2: the D row and the E sum over M and D
+      float es = 0.f;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        d[j] = dd;
+        es += m[j] + dd;
+        dd = m[j] * TR(6, j) + dd * TR(7, j);
+      }
+      const float e = warp_sum_f(es);
+      const float nj = xJ * loop + e * 0.5f;
+      const float nc = xC * loop + e * 0.5f;
+      const float nn = xN * loop;
+      const float nb = (nn + nj) * move;
+      const float mx = fmaxf(fmaxf(fmaxf(e, nj), fmaxf(nc, nn)), TINY);
+      const float inv = 1.f / mx;
+      lsc += logf(mx);
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        m[j] *= inv;
+        iv[j] *= inv;
+        d[j] *= inv;
+      }
+      xJ = nj * inv;
+      xC = nc * inv;
+      xN = nn * inv;
+      xB = nb * inv;
+    }
+  }
+#undef TR
+  if (lane == 0)
+    out[pair_out[w]] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
 }
 
 template <int S>
@@ -207,13 +346,19 @@ static int launch_fwd(const void* codes, int Lmax, const void* lens,
                       const void* pair_p, const void* pair_row,
                       const void* pair_out, int npairs, int Kp, void* out,
                       cudaStream_t stream) {
-  constexpr int G = fwd_lanes(S), SL = 32 * S / G;
-  const int warps = (npairs + 32 / G - 1) / (32 / G);
-  const int grid = (warps + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  fwd_kernel<G, SL><<<grid, 32 * WARPS_PER_BLOCK, 0, stream>>>(
-      (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
-      (const float2*)emis, (const float4*)trans, (const int*)pair_p,
-      (const int*)pair_row, (const int*)pair_out, npairs, Kp, (float*)out);
+  const int grid = (npairs + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  if constexpr (S >= FWD_WIDE_S)
+    fwd_wide_kernel<S><<<grid, 32 * WARPS_PER_BLOCK, 0, stream>>>(
+        (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
+        (const float*)emis, (const float*)trans, (const int*)pair_p,
+        (const int*)pair_row, (const int*)pair_out, npairs, Kp,
+        (float*)out);
+  else
+    fwd_kernel<S><<<grid, 32 * WARPS_PER_BLOCK, 0, stream>>>(
+        (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
+        (const float2*)emis, (const float4*)trans, (const int*)pair_p,
+        (const int*)pair_row, (const int*)pair_out, npairs, Kp,
+        (float*)out);
   return (int)cudaGetLastError();
 }
 

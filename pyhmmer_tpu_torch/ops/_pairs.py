@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from .batch import NEGMASS, STRIPES, fwd_lanes
+from .batch import FWD_WIDE_S, NEGMASS, STRIPES, fwd_stripes
 
 
 def check_tensors(want: dict, table=None) -> None:
@@ -46,38 +46,34 @@ def check(codes, lens, lm, emis_m, emis_i, tr, rows, need):
 
 
 def check_fwd(codes, lens, lm, emis, trans, rows, need):
-    """Raise on what the Forward kernel does not take: ``emis`` [P, Kp,
-    SL, G, 2] and ``trans`` [P, SL, G, 8] packed for a compiled stripe
-    width ``S = SL * G / 32`` with ``G = fwd_lanes(S)``."""
+    """Raise on what the Forward kernel does not take: ``emis`` [P, Kp, S,
+    32, 2] and ``trans`` [P, S, 2, 32, 4] for a compiled stripe width
+    ``S``, or from ``S = FWD_WIDE_S`` on ``emis`` [P, Kp, 2, S, 32] and
+    ``trans`` [P, 8, S, 32] (``ops/batch.py``)."""
     B, _ = codes.shape
-    if emis.dim() != 5:
+    P, Kp = emis.shape[:2]
+    S = fwd_stripes(trans)
+    wide = S >= FWD_WIDE_S
+    if S not in STRIPES or Kp > 32 or trans.dim() != (4 if wide else 5):
         raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
-    P, Kp, SL, G, _ = emis.shape
     n = rows.shape[0]
-    S = SL * G // 32
-    if (S not in STRIPES or G != fwd_lanes(S) or SL * G != 32 * S
-            or Kp > 32):
-        raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
     check_tensors({"codes": (codes, torch.uint8, None),
                    "lens": (lens, torch.int32, (B,)),
                    "lm": (lm, torch.float32, (B, 4)),
-                   "emis": (emis, torch.float32, (P, Kp, SL, G, 2)),
-                   "trans": (trans, torch.float32, (P, SL, G, 8)),
+                   "emis": (emis, torch.float32,
+                            (P, Kp, 2, S, 32) if wide else (P, Kp, S, 32, 2)),
+                   "trans": (trans, torch.float32,
+                             (P, 8, S, 32) if wide else (P, S, 2, 32, 4)),
                    "rows": (rows, torch.int64, (n,)),
                    "need": (need, torch.bool, (P, n))})
 
 
-def pairs(rows, need, lens=None):
+def pairs(rows, need):
     """Flat pair arrays for the kernels: profile, bucket row and output
     offset (``p * n + column``) of every needed pair, int32 on the
-    device, plus a NEGMASS-filled output [P, n].  Given the bucket's
-    lengths ``lens``, each profile's pairs are ordered longest first, so
-    the targets that share a warp end on nearby rows."""
+    device, plus a NEGMASS-filled output [P, n]."""
     P, n = need.shape
     pc = need.nonzero()
-    if lens is not None:
-        ln = lens[rows[pc[:, 1]]].long()
-        pc = pc[torch.argsort(pc[:, 0] * (1 << 32) - ln)]
     pair_p = pc[:, 0].to(torch.int32).contiguous()
     pair_row = rows[pc[:, 1]].to(torch.int32).contiguous()
     pair_out = (pc[:, 0] * n + pc[:, 1]).to(torch.int32).contiguous()

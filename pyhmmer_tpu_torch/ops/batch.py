@@ -20,12 +20,13 @@ warp lane ``l`` reads its ``S`` slots with coalesced loads:
   the slot into slot ``s + 1``.  ``NEGMASS`` marks an absent transition;
 * ``fwd_ems`` / ``fwd_eis`` / ``fwd_tr``: the same tables in odds space
   (``exp``, 0 where absent), read by the survivor-rows kernel;
-* ``fwd_emis`` [P, Kp, SL, G, 2] and ``fwd_trans`` [P, SL, G, 8]: the
-  odds tables of the Forward filter kernel, packed so that a lane reads
-  one slot's (M, I) emission odds in one 8-byte load and its eight
-  transition odds in two 16-byte loads.  ``G = fwd_lanes(S)`` lanes
-  score one target, each holding a stripe of ``SL = 32 * S / G`` slots
-  (:func:`striped` with ``G`` lanes).
+* ``fwd_emis`` [P, Kp, S, 32, 2] and ``fwd_trans`` [P, S, 2, 32, 4]:
+  the odds tables of the Forward filter kernel, packed so that a lane
+  reads one slot's (M, I) emission odds in one 8-byte load and its
+  eight transition odds (0-3, then 4-7) in two 16-byte loads, each
+  contiguous over the warp; from ``S = FWD_WIDE_S`` on, where the
+  kernel reads one value a load, ``fwd_emis`` [P, Kp, 2, S, 32] (the M
+  then the I odds of a residue) and ``fwd_trans`` [P, 8, S, 32], striped.
 
 ``SeqDevice`` holds one length bucket of target sequences on an explicit
 device.  The JAX package imports JAX at load, so the packing is
@@ -51,6 +52,10 @@ NEGMASS = -1e30
 #: lane stripe widths the kernels are compiled for (model slots per lane)
 STRIPES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 
+#: stripe width from which the Forward kernel takes the wide table layout
+#: (``csrc/fwd.cu:FWD_WIDE_S``)
+FWD_WIDE_S = 32
+
 #: padded model width granularity when no ``Mp`` is given
 PAD = 64
 
@@ -58,13 +63,6 @@ PAD = 64
 FIELDS = ("msc", "isc", "tMM", "tIM", "tDM", "tMD", "tDD", "tBM", "tMI",
           "tII", "kmask", "xE", "msv_cost", "msv_bias", "msv_tec",
           "msv_tbm", "filter_odds")
-
-
-def fwd_lanes(S: int) -> int:
-    """Lanes per target of the Forward filter kernel for a stripe width
-    ``S`` (``csrc/fwd.cu:fwd_lanes``): 8 up to 128 model slots, 16 up to
-    256, else a whole warp."""
-    return 8 if S <= 4 else 16 if S <= 8 else 32
 
 
 def round_up(x: int, m: int) -> int:
@@ -146,26 +144,35 @@ def _xexp(a: np.ndarray) -> np.ndarray:
                     0.0).astype(np.float32)
 
 
-def striped(a, lanes: int = 32):
-    """[..., Mk] -> [..., Mk / lanes, lanes] with element (j, l) = slot
-    l * (Mk / lanes) + j (a numpy array or a tensor; a view where
-    possible)."""
+def striped(a):
+    """[..., Mk] -> [..., S, 32] with element (j, l) = slot l*S + j (a
+    numpy array or a tensor; a view where possible)."""
     *lead, Mk = a.shape
-    return a.reshape(*lead, lanes, Mk // lanes).swapaxes(-1, -2)
+    return a.reshape(*lead, 32, Mk // 32).swapaxes(-1, -2)
 
 
 def unstriped(t: torch.Tensor) -> torch.Tensor:
-    """The inverse of :func:`striped`: [..., S, lanes] -> [..., Mk]."""
-    *lead, S, lanes = t.shape
-    return t.swapaxes(-1, -2).reshape(*lead, lanes * S)
+    """The inverse of :func:`striped`: [..., S, 32] -> [..., Mk]."""
+    *lead, S, _ = t.shape
+    return t.swapaxes(-1, -2).reshape(*lead, 32 * S)
+
+
+def fwd_stripes(trans: torch.Tensor) -> int:
+    """The stripe width ``S`` of a packed ``fwd_trans`` (either layout)."""
+    return trans.shape[2] if trans.dim() == 4 else trans.shape[1]
 
 
 def fwd_unpacked(emis: torch.Tensor, trans: torch.Tensor):
-    """The Forward kernel's packed tables (``fwd_emis``, ``fwd_trans``)
-    as plain [P, Kp, Mk] emission odds (M, I) and [P, 8, Mk] transition
-    odds."""
+    """The Forward kernel's packed tables (``fwd_emis``, ``fwd_trans``, in
+    either layout) as plain [P, Kp, Mk] emission odds (M, I) and [P, 8,
+    Mk] transition odds."""
+    if trans.dim() == 4:                       # the wide layout
+        return (unstriped(emis[:, :, 0]), unstriped(emis[:, :, 1]),
+                unstriped(trans))
+    P, S = trans.shape[:2]
+    tr = trans.swapaxes(2, 3).reshape(P, S, 32, 8)
     return (unstriped(emis[..., 0]), unstriped(emis[..., 1]),
-            unstriped(trans.movedim(-1, 1)))
+            unstriped(tr.movedim(-1, 1)))
 
 
 def kernel_tables(f: dict) -> dict:
@@ -206,15 +213,19 @@ def kernel_tables(f: dict) -> dict:
 
     s = np.ascontiguousarray
     ems, eis, otr = _xexp(msc), _xexp(isc), _xexp(tr)
-    G = fwd_lanes(Mk // 32)
+    if Mk // 32 >= FWD_WIDE_S:
+        emis = np.stack([striped(ems), striped(eis)], axis=2)
+        trans = striped(otr)
+    else:
+        emis = np.stack([striped(ems), striped(eis)], axis=-1)
+        trans = np.moveaxis(striped(otr), 1, -1).reshape(
+            P, Mk // 32, 32, 2, 4).swapaxes(2, 3)
     return {"msv_w16": s(striped(w16)), "msv_scal": scal,
             "msv_odds": odds, "vit_msc": s(striped(msc)),
             "vit_isc": s(striped(isc)), "vit_tr": s(striped(tr)),
             "fwd_ems": s(striped(ems)), "fwd_eis": s(striped(eis)),
-            "fwd_tr": s(striped(otr)),
-            "fwd_emis": s(np.stack([striped(ems, G), striped(eis, G)],
-                                   axis=-1)),
-            "fwd_trans": s(np.moveaxis(striped(otr, G), 1, -1))}
+            "fwd_tr": s(striped(otr)), "fwd_emis": s(emis),
+            "fwd_trans": s(trans)}
 
 
 class ProfileBatch(nn.Module):

@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from . import _build, _pairs
-from .batch import NEGMASS, ProfileBatch, SeqDevice, fwd_unpacked
+from .batch import (NEGMASS, ProfileBatch, SeqDevice, fwd_stripes,
+                    fwd_unpacked)
 
 #: kernel launches made by :func:`fwd_scores` (reset by the caller)
 launches = 0
@@ -32,24 +33,25 @@ def forward(pb: ProfileBatch, seq: SeqDevice, rows, need):
 
 def fwd_scores(codes, lens, lm, emis, trans, rows, need):
     """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``lm`` [B, 4] f32
-    length model; ``emis`` [P, Kp, SL, G, 2] f32 (M, I) emission odds and
-    ``trans`` [P, SL, G, 8] f32 transition odds, packed for ``G`` lanes
-    a target (``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n]
-    bool.  Returns scores [P, n] f32 nats."""
+    length model; ``emis`` f32 (M, I) emission odds and ``trans`` f32
+    transition odds, packed ([P, Kp, S, 32, 2] and [P, S, 2, 32, 4], or
+    from ``S = FWD_WIDE_S`` on [P, Kp, 2, S, 32] and [P, 8, S, 32]:
+    ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool.  Returns
+    scores [P, n] f32 nats."""
     _pairs.check_fwd(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type == "cpu":
         return fwd_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     global launches
-    Kp, SL, G = emis.shape[1:4]
-    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, lens)
+    Kp, S = emis.shape[1], fwd_stripes(trans)
+    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need)
     npairs = int(pair_p.shape[0])
     P_ = _build.ptr
     err = _build.lib().fwd_launch(
         P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),
-        P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp, SL * G // 32,
-        P_(out), _build.stream_ptr(codes))
+        P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp, S, P_(out),
+        _build.stream_ptr(codes))
     _build.check(err, "fwd_launch")
     launches += 1
     return out

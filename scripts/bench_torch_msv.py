@@ -26,9 +26,11 @@ off) and records every argument set it was called with -- then at the
 Forward parity shapes of ``chip_smoke.py`` (the same chunks, buckets and
 seeded need masks, and the widest chunk against every lane of the
 longest bucket).  Per launch it reports the pairs, P, Mk, Lmax, the DP
-cells (the sum of M x L over the pairs), the time and the bound
-(``chip_smoke.bound``), then the wall time and ``s2_fetched`` stage mark
-of three more smoke searches.
+cells (the sum of M x L over the pairs), the time of the call and the
+bound (``chip_smoke.bound``), the device time of the Forward kernel alone
+and of every kernel of the call (``torch.profiler`` over one more call),
+and the scores (so runs of two checkouts can be compared); then the
+wall time and ``s2_fetched`` stage mark of three more smoke searches.
 
 The card's name and power limit head the output; the JSON record of
 every run goes to ``--out``.
@@ -41,6 +43,8 @@ import subprocess
 import sys
 import time
 
+#: the Forward kernels' names (the profiler's keys start with them)
+FWD_KERNELS = ("fwd_kernel", "fwd_wide_kernel")
 SHAPES = (("big", 512, 20), ("big", 2048, 20), ("huge", 512, 20),
           ("huge", "longest", 3), ("narrow", 512, 20), ("mid", 512, 20))
 
@@ -111,6 +115,12 @@ def worker_fwd(root):
     for kind, pb, dev, rows, need, reps in (
             [("main", *c, 20) for c in calls] + parity):
         ms = cuda_ms(lambda: fwd_cuda.forward(pb, dev, rows, need), reps)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            scores = fwd_cuda.forward(pb, dev, rows, need)
+            torch.cuda.synchronize()
+        dev_us = {e.key: getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()}
         lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[rows.cpu()]
         M = torch.as_tensor(pb.M, dtype=torch.float64)
         cells = float((M[:, None] * lens[None, :])[need.cpu()].sum())
@@ -121,8 +131,11 @@ def worker_fwd(root):
         out["launches"].append(dict(
             kind=kind, npairs=int(need.sum()), P=pb.P, Mk=32 * pb.S,
             Lmax=dev.Lmax, n=int(rows.shape[0]), cells=cells, ms=ms,
-            reps=reps, **C.bound(C.FILTER_FLOPS * cells / C.F32_RATE, args,
-                                 (res,))))
+            reps=reps, kernel_ms=sum(us for k, us in dev_us.items()
+                                     if k.startswith(FWD_KERNELS)) / 1e3,
+            device_ms=sum(dev_us.values()) / 1e3,
+            scores=scores[need].cpu().tolist(),
+            **C.bound(C.FILTER_FLOPS * cells / C.F32_RATE, args, (res,))))
     out["s2_fetched_s"], out["wall_s"] = [], []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -225,7 +238,8 @@ def main():
         if res.returncode != 0:
             sys.exit(f"run on {root} failed:\n{res.stderr[-3000:]}")
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]), flush=True)
+        print(json.dumps({k: v for k, v in runs[-1].items()
+                          if k != "launches"}), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

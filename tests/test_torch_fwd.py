@@ -5,11 +5,10 @@ within 0.05 nats, on padded widths on both sides of 384 and 768 (the
 JAX engine's Forward routes) and with a ``need`` mask holding dead
 pairs; on the two narrower stacks also against the v1 Pallas Forward
 (``fwd_pallas._fwd_pallas``, in interpret mode).  The same bars hold on
-widths on both sides of each step of the kernel's lanes per target (8
-up to 128 slots, 16 up to 256, then 32) against lanes of 20 to 500
-residues.  On the CPU the wrapper runs the kernel's plain version over
-the packed tables; the kernel's pair order (each profile's pairs
-longest first) keeps every score in its place."""
+narrow widths (2 to 16 slots a lane, on both sides of the kernel's
+register thresholds) against lanes of 20 to 500 residues.  On the CPU
+the wrapper runs the kernel's plain version over the packed tables;
+the pair list puts every score in its place."""
 
 import os
 import sys
@@ -42,8 +41,8 @@ torch.set_num_threads(1)
 STACKS = [((60, 200, 330), 352), ((400,), 416), ((700,), 736),
           ((790,), 800)]
 N, LMAX, BAR = 36, 160, 0.05
-#: widths on both sides of each step of ``batch.fwd_lanes`` (G = 8, 8, 8,
-#: 16, 16, 32 lanes a target)
+#: narrow widths: 2, 3, 4, 6, 8 and 16 slots a lane (the kernel keeps
+#: the transitions in registers up to 8, prefetches emissions up to 16)
 NARROW = [((40, 60), 64), ((70, 90), 96), ((100, 120), 128),
           ((150, 180), 192), ((200, 250), 256), ((400,), 416)]
 NARROW_N = 14
@@ -210,50 +209,63 @@ def test_narrow_matches_float64_oracle(narrow):
 
 def test_packed_tables_hold_the_odds_tables(narrow):
     """``fwd_emis`` / ``fwd_trans`` are the rows kernel's striped odds
-    tables, packed for ``G = fwd_lanes(S)`` lanes: lane l holds slots
-    l*SL .. l*SL+SL-1, slot j's (M, I) odds of a residue side by side
-    and its 8 transition odds side by side."""
+    tables, packed: lane l holds slots l*S .. l*S+S-1, slot j's (M, I)
+    odds of a residue side by side and its 8 transition odds in two
+    planes of 4, each plane of a slot contiguous over the warp."""
     tpb = narrow.tpb
-    P, Kp, SL, G, two = tpb.fwd_emis.shape
-    assert (G, SL * G, two) == (TB.fwd_lanes(tpb.S), 32 * tpb.S, 2)
-    assert tpb.fwd_trans.shape == (P, SL, G, 8)
+    P, Kp, S = tpb.fwd_emis.shape[:3]
+    assert S == tpb.S == TB.fwd_stripes(tpb.fwd_trans) < TB.FWD_WIDE_S
+    assert tpb.fwd_emis.shape == (P, Kp, S, 32, 2)
+    assert tpb.fwd_trans.shape == (P, S, 2, 32, 4)
     ems, eis, tr = TB.fwd_unpacked(tpb.fwd_emis, tpb.fwd_trans)
     assert torch.equal(ems, TB.unstriped(tpb.fwd_ems))
     assert torch.equal(eis, TB.unstriped(tpb.fwd_eis))
     assert torch.equal(tr, TB.unstriped(tpb.fwd_tr))
-    lane, j = G - 1, SL - 1
-    assert tpb.fwd_trans[0, j, lane, 6] == tr[0, 6, lane * SL + j]
-    assert tpb.fwd_emis[0, 3, j, lane, 1] == eis[0, 3, lane * SL + j]
+    lane, j = 31, S - 1
+    assert tpb.fwd_trans[0, j, 1, lane, 2] == tr[0, 6, lane * S + j]
+    assert tpb.fwd_trans[0, j, 0, lane, 3] == tr[0, 3, lane * S + j]
+    assert tpb.fwd_emis[0, 3, j, lane, 1] == eis[0, 3, lane * S + j]
 
 
-def test_pairs_ordered_longest_first_keep_their_places():
-    """With the bucket's lengths the pair list is profile-major, each
-    profile's pairs longest first, and every needed (profile, column)
-    appears once with its own profile, row and output offset (profile 0
-    has 5 pairs, so a group of 4 targets spans a profile boundary)."""
+@pytest.mark.parametrize("case", STACKS[2:], indirect=True,
+                         ids=lambda s: f"Mp{s[1]}")
+def test_wide_tables_are_striped(case):
+    """From ``FWD_WIDE_S`` slots a lane on (Mp 800 has 32) the packed
+    tables are the striped odds tables: the M then the I odds of a
+    residue, and one table per transition."""
+    tpb = TB.ProfileBatch(port_profiles(case.models), Mp=case.jpb.Mp)
+    S = tpb.S
+    assert (S >= TB.FWD_WIDE_S) == (case.jpb.Mp > 32 * 24)
+    if S < TB.FWD_WIDE_S:
+        assert tpb.fwd_trans.dim() == 5
+        return
+    P, Kp = tpb.P, tpb.Kp
+    assert tpb.fwd_emis.shape == (P, Kp, 2, S, 32)
+    assert torch.equal(tpb.fwd_emis[:, :, 0], tpb.fwd_ems)
+    assert torch.equal(tpb.fwd_emis[:, :, 1], tpb.fwd_eis)
+    assert torch.equal(tpb.fwd_trans, tpb.fwd_tr)
+    ems, eis, tr = TB.fwd_unpacked(tpb.fwd_emis, tpb.fwd_trans)
+    assert torch.equal(tr, TB.unstriped(tpb.fwd_tr))
+
+
+def test_pairs_keep_their_places():
+    """Every needed (profile, column) appears once in the pair list, with
+    its own profile, bucket row and output offset, so a score written
+    through ``pair_out`` lands at (p, column) and the rest read
+    NEGMASS."""
     rng = np.random.default_rng(7)
     P, B, n = 3, 40, 30
-    lens = torch.from_numpy(rng.integers(20, 501, B).astype(np.int32))
     rows = torch.from_numpy(rng.permutation(B)[:n].astype(np.int64))
     need = torch.from_numpy(rng.random((P, n)) < 0.5)
-    need[0] = False
-    need[0, torch.from_numpy(rng.permutation(n)[:5])] = True
     need[:, 3] = False
-    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, lens)
+    need[1] = False
+    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need)
     flat = need.flatten().nonzero().flatten()
-    assert sorted(pair_out.tolist()) == flat.tolist()
+    assert torch.equal(pair_out.long(), flat)
     po = pair_out.long()
     assert torch.equal(pair_p.long(), po // n)
     assert torch.equal(pair_row.long(), rows[po % n])
-    assert bool((pair_p[1:] >= pair_p[:-1]).all())
-    L = lens[pair_row.long()]
-    same = pair_p[1:] == pair_p[:-1]
-    assert bool((L[1:][same] <= L[:-1][same]).all())
-    groups = pair_p[: len(pair_p) // 4 * 4].view(-1, 4)
-    assert bool((groups[:, 0] != groups[:, -1]).any())
     out.view(-1)[po] = po.float()
     want = torch.where(need, torch.arange(P * n).view(P, n).float(),
                        torch.tensor(TB.NEGMASS))
     assert torch.equal(out, want)
-    # without lengths: the order of need.nonzero() (the Viterbi wrapper)
-    assert torch.equal(_pairs.pairs(rows, need)[2].long(), flat)

@@ -166,10 +166,9 @@ def test_survivor_kernels_match_plain(case, name):
                          ids=["Mk32", "Mk64", "Mk96", "Mk128", "Mk192",
                               "Mk256"])
 def test_fwd_narrow_widths(cuda, Ms, Mp):
-    """The widths at which a warp scores several targets (8 lanes a
-    target up to 128 slots, 16 up to 256), on 61 lanes of 1 to 500
-    residues, so a warp's targets end on different rows, with a random
-    need mask, so profile boundaries fall inside warps."""
+    """Narrow widths, 1 to 8 slots a lane (transitions held in
+    registers), on 61 lanes of 1 to 500 residues with a random need
+    mask."""
     hmms = syn.sample_models(Ms, seed=Mp + 11)
     aa = hmms[0].alphabet
     bg = Background(aa)
@@ -192,6 +191,41 @@ def test_fwd_narrow_widths(cuda, Ms, Mp):
     assert (k[~need] == TB.NEGMASS).all()
     live = need & (p > -1e29)
     assert torch.equal(k > -1e29, live)
+    assert (k - p)[live].abs().max().item() <= FWD_TOL
+
+
+def test_fwd_long_narrow_lanes(cuda):
+    """A narrow model (6 slots a lane) on lanes of 30,500 and 31,000
+    background residues, one with a planted domain of each model, beside
+    short lanes: the kernel's row-invariant terms and reciprocal do not
+    drift from the plain version over 31,000 rows."""
+    hmms = syn.sample_models((40, 100, 170), seed=192)
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                     multihit=True)
+                          for h in hmms], Mp=192).to(cuda)
+    short, slens = syn.make_lanes(hmms, 14, 320, seed=197)
+    codes = np.full((16, 31000), aa.nonresidue_code, np.uint8)
+    codes[:14, :320] = short
+    rng = np.random.default_rng(198)
+    f = np.asarray(bg.residue_frequencies, np.float64)
+    codes[14:, :] = rng.choice(len(f), size=(2, 31000), p=f / f.sum())
+    for k, h in enumerate(hmms):
+        dom = syn.plant(h, rng, 0.5)
+        codes[15, 9000 * k + 500: 9000 * k + 500 + len(dom)] = dom
+    lengths = np.concatenate([slens, [30500, 31000]])
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    rows = torch.arange(16, device=cuda)
+    need = torch.ones((3, 16), dtype=torch.bool, device=cuda)
+    args = (dev.codes, dev.lens, dev.lm, pb.fwd_emis, pb.fwd_trans, rows,
+            need)
+    k = fwd_cuda.fwd_scores(*args)
+    p = fwd_cuda.fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k > -1e29, p > -1e29)
+    live = p > -1e29
     assert (k - p)[live].abs().max().item() <= FWD_TOL
 
 
