@@ -43,8 +43,8 @@ import subprocess
 import sys
 import time
 
-#: the Forward kernels' names (the profiler's keys start with them)
-FWD_KERNELS = ("fwd_kernel", "fwd_wide_kernel")
+#: the Forward kernels' names (in the profiler's keys)
+FWD_KERNELS = ("fwd_kernel<", "fwd_wide_kernel<")
 SHAPES = (("big", 512, 20), ("big", 2048, 20), ("huge", 512, 20),
           ("huge", "longest", 3), ("narrow", 512, 20), ("mid", 512, 20))
 
@@ -121,6 +121,8 @@ def worker_fwd(root):
             torch.cuda.synchronize()
         dev_us = {e.key: getattr(e, "self_device_time_total", 0.0)
                   for e in prof.key_averages()}
+        kernel_us = sum(us for k, us in dev_us.items()
+                        if any(n in k for n in FWD_KERNELS))
         lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[rows.cpu()]
         M = torch.as_tensor(pb.M, dtype=torch.float64)
         cells = float((M[:, None] * lens[None, :])[need.cpu()].sum())
@@ -131,8 +133,7 @@ def worker_fwd(root):
         out["launches"].append(dict(
             kind=kind, npairs=int(need.sum()), P=pb.P, Mk=32 * pb.S,
             Lmax=dev.Lmax, n=int(rows.shape[0]), cells=cells, ms=ms,
-            reps=reps, kernel_ms=sum(us for k, us in dev_us.items()
-                                     if k.startswith(FWD_KERNELS)) / 1e3,
+            reps=reps, kernel_ms=kernel_us / 1e3,
             device_ms=sum(dev_us.values()) / 1e3,
             scores=scores[need].cpu().tolist(),
             **C.bound(C.FILTER_FLOPS * cells / C.F32_RATE, args, (res,))))
