@@ -57,7 +57,7 @@
 // Several targets a warp (8 or 16 lanes a target for narrow models, as
 // msv.cu does) was built and measured: it won only at the launches with
 // more than about 4,000 pairs and lost at the others, since a latency-
-// bound launch with fewer warps hides less (PERF.md, PR 5).
+// bound launch with fewer warps hides less (PERF.md, Findings).
 
 #include "common.cuh"
 
@@ -236,7 +236,7 @@ fwd_kernel(const uint8_t* __restrict__ codes, int Lmax,
 // one striped table per transition).  There one profile's tables (270 KB
 // at Mk1024) exceed L1.  fwd_kernel at S = 32 was 6-10% faster at the
 // smoke search's Mk1024 launches but a third slower on a 35,000-residue
-// target (PERF.md, PR 5), so wide models keep this loop.
+// target (PERF.md, Findings), so wide models keep this loop.
 template <int S>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 fwd_wide_kernel(const uint8_t* __restrict__ codes, int Lmax,
