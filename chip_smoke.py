@@ -13,7 +13,9 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at main-path shapes (for MSV also the widest chunk x the
    longest bucket; for Forward also the launch with the most pairs of
-   one smoke search, replayed with its own arguments), with the bars
+   one smoke search, and for Viterbi that of one smoke search and of one
+   with the cascade forced, replayed with their own arguments and the
+   engine's pair lists), with the bars
    below (MSV: ovf identical, dx exact on
    every pair neither side flags, biaslog within 0.25 (2e-3 + 1e-6 L)
    nats); both are timed with CUDA events (warm, many launches, in turns
@@ -86,12 +88,27 @@ ROWS_SCORE_TOL = 2e-3
 #: DP cell (M x L, real widths and lengths, pairs the launch computes):
 #: MSV 4 (HMMER's max with B, add bias, subtract cost, max into E) plus
 #: the bias filter's 10 float operations per (profile, residue); Forward
-#: and Viterbi 16 (M 8, I 4, D 3, E 1); rows 40 (Forward and Backward
-#: parsers and the decode)
+#: 16 (M 8, I 4, D 3, E 1) at the FMA rate; rows 40 (Forward and Backward
+#: parsers and the decode).  Viterbi, max-plus, has no FMA: per cell 10
+#: FADD (M 5, I 3, D 2) and 10 FMNMX (M 4, I 2, D 2, E 2), at the issue
+#: rates of compute capability 9.0 in the CUDA C++ Programming Guide's
+#: arithmetic-throughput table: 128 f32 adds and 64 minimum/maximum
+#: results a clock per SM, x 132 SMs x 1.98 GHz
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
 INT16X2_RATE = 2 * 132 * 64 * 1.98e9
+FADD_RATE = 132 * 128 * 1.98e9
+FMNMX_RATE = 132 * 64 * 1.98e9
 MSV_OPS, BIAS_FLOPS, FILTER_FLOPS, ROWS_FLOPS = 4, 10, 16, 40
+VIT_FADD, VIT_FMNMX = 10, 10
+
+
+def vit_ops_s(cells):
+    """Seconds the Viterbi recurrence's operations take on ``cells`` DP
+    cells at the card's issue rates."""
+    return cells * (VIT_FADD / FADD_RATE + VIT_FMNMX / FMNMX_RATE)
+
+
 KERNELS = {
     "msv": (msv_cuda, "pyhmmer_tpu_torch/csrc/msv.cu",
             "pyhmmer_tpu/ops/msv_pallas.py:355"),
@@ -132,9 +149,9 @@ def ptxas_summary(report):
     out, name = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"function '_Z\d+([A-Za-z_]\w*?)(I(?:Li\d+E)+E|P)",
-                          line)
-            targs = re.findall(r"Li(\d+)E", m.group(2))
+            m = re.search(
+                r"function '_Z\d+([A-Za-z_]\w*?)(I(?:L[ib]\d+E)+E|P)", line)
+            targs = re.findall(r"L[ib](\d+)E", m.group(2))
             name = m.group(1) + (f"<{','.join(targs)}>" if targs else "")
             out[name] = {"smem_static": 0}
         elif name and "spill stores" in line:
@@ -205,8 +222,15 @@ def phase_environment(smi):
     say("environment", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         build_s=build_s, nvcc_flags=" ".join(_build.NVCC_FLAGS))
-    for kern, info in ptxas_summary(_build.ptxas_report()).items():
+    ptxas = ptxas_summary(_build.ptxas_report())
+    for kern, info in ptxas.items():
         say("ptxas", kernel=kern, **info)
+    # vit_kernel<S, NW, WIDE>: S slots a lane, NW warps a pair
+    say("vit_spills", **{k: (v["regs"], v.get("spill_st", 0),
+                             v.get("spill_ld", 0))
+                         for k, v in ptxas.items()
+                         if k.startswith("vit_kernel<")},
+        note="registers, spill store and load bytes")
     say("sass", **sass_summary(_build.LIB, "msv_kernel"))
 
 
@@ -243,21 +267,26 @@ def chunk_batch(queries, qidx, Mp):
     return B.ProfileBatch(profs, Mp=Mp).to("cuda")
 
 
-def main_path_fwd_launches(queries, targets):
-    """The arguments (profile batch, bucket, rows, need) of every
-    ``fwd_cuda.forward`` call of one smoke search (rows off), in order."""
+def main_path_launches(mod, fn, queries, targets, forced=False):
+    """The arguments (profile batch, bucket, rows, need, pairs) of every
+    call of ``mod.fn`` (``fwd_cuda.forward``, ``vit_cuda.viterbi``) in one
+    smoke search (rows off; ``forced``: with the cascade forced), in
+    order."""
     calls = []
-    real = fwd_cuda.forward
+    real = getattr(mod, fn)
 
     def spy(*args):
         calls.append(args)
         return real(*args)
-    fwd_cuda.forward = spy
+    setattr(mod, fn, spy)
     try:
-        E.SearchEngine(queries[0].alphabet, device="cuda").search(
-            queries, targets)
+        if forced:
+            forced_search(queries, targets, False)
+        else:
+            E.SearchEngine(queries[0].alphabet, device="cuda").search(
+                queries, targets)
     finally:
-        fwd_cuda.forward = real
+        setattr(mod, fn, real)
     return calls
 
 
@@ -326,18 +355,31 @@ def phase_parity(queries, targets):
         pb, dev = pbs[Mp], devs[Lmax]
         cols = torch.arange(0, dev.B, 8, device="cuda")
         need = (torch.rand((pb.P, len(cols)), generator=gen) < 0.25)
-        cases.append((pb, dev, cols, need.to("cuda"), 10, 1, "",
+        cases.append((pb, dev, cols, need.to("cuda"), None, 10, 1, "",
                       ("fwd", "vit")))
     pb, dev = pbs[huge], devs[max(devs)]
     cases.append((pb, dev, torch.arange(dev.B, device="cuda"),
                   torch.ones((pb.P, dev.B), dtype=torch.bool,
-                             device="cuda"), 3, 1, "", ("fwd", "vit")))
-    launches = main_path_fwd_launches(queries, targets)
-    pb, dev, cols, need = max(launches, key=lambda c: int(c[3].sum()))
-    cases.append((pb, dev, cols, need, 20, 1,
+                             device="cuda"), None, 3, 1, "", ("fwd", "vit")))
+    launches = main_path_launches(fwd_cuda, "forward", queries, targets)
+    pb, dev, cols, need, pairs = max(launches, key=lambda c: int(c[3].sum()))
+    cases.append((pb, dev, cols, need, pairs, 20, 1,
                   f"main-path launch (most pairs of {len(launches)}): ",
                   ("fwd",)))
-    for pb, dev, cols, need, reps_k, reps_p, label, kernels in cases:
+    # Viterbi: the main path's launches, and the forced cascade's launch
+    # with the most pairs (what a Pfam-scale search sends)
+    for forced in (False, True):
+        launches = main_path_launches(vit_cuda, "viterbi", queries, targets,
+                                      forced)
+        if not launches:
+            fail(f"no Viterbi launch in the smoke search (forced {forced})")
+        pb, dev, cols, need, pairs = max(launches,
+                                         key=lambda c: int(c[3].sum()))
+        label = "forced-cascade" if forced else "main-path"
+        cases.append((pb, dev, cols, need, pairs, 20, 1,
+                      f"{label} launch (most pairs of {len(launches)}): ",
+                      ("vit",)))
+    for pb, dev, cols, need, pairs, reps_k, reps_p, label, kernels in cases:
         if pb.Mp > 768 or dev.Lmax > 8192:
             route = "batch XLA scan"
         else:
@@ -346,11 +388,13 @@ def phase_parity(queries, targets):
                 ("fwd", fwd_cuda.fwd_scores, fwd_cuda.fwd_plain, FWD_TOL,
                  ("fwd_emis", "fwd_trans")),
                 ("vit", vit_cuda.vit_scores, vit_cuda.vit_plain, VIT_TOL,
-                 ("vit_msc", "vit_isc", "vit_tr"))):
+                 ("vit_emis", "vit_trans"))):
             if name not in kernels:
                 continue
+            # the main path's launches with the engine's host-built pair
+            # list, the others with the wrapper's own
             args = (dev.codes, dev.lens, dev.lm,
-                    *(getattr(pb, t) for t in tabs), cols, need)
+                    *(getattr(pb, t) for t in tabs), cols, need, pairs)
             k = fn(*args)
             p = plain(*args)
             torch.cuda.synchronize()
@@ -375,7 +419,8 @@ def phase_parity(queries, targets):
                       f"{int(need.sum())}) x L{dev.Lmax} x Mk{32 * pb.S}",
                 tpu=tpu,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
-                **bound(FILTER_FLOPS * cells / F32_RATE, args, (k,))))
+                **bound(vit_ops_s(cells) if name == "vit"
+                        else FILTER_FLOPS * cells / F32_RATE, args, (k,))))
             say("parity", kernel=name, **results[name][-1],
                 bar=f"|kernel - plain| <= {tol} nats on live pairs")
 

@@ -43,12 +43,14 @@ from .easel.alphabet import Alphabet
 from .easel.sequence import DigitalSequenceBlock
 from .ops import batch as B
 from .ops import fwd_cuda, msv_cuda, rows_cuda, vit_cuda
+from .ops import _pairs
 from .ops import native as _native
 from .ops import reference as refops
 from .plan7.background import Background
 from .plan7.evalues import exp_surv, gumbel_invsurv, gumbel_surv
 from .plan7.hmm import HMM
-from .plan7.pipeline import F2_SKIP_SLACK, F3_SLACK, LOG2, Pipeline
+from .plan7.pipeline import (F2_SKIP_SLACK, F3_SLACK, LOG2,
+                             MAX_TARGET_LENGTH, Pipeline)
 from .plan7.profile import Profile
 from .plan7.results import TopHits
 
@@ -56,7 +58,8 @@ __all__ = ["SearchEngine"]
 
 #: max profiles stacked per chunk
 P_MAX = 64
-#: length-bucket ladder (Lmax per level)
+#: length-bucket ladder (Lmax per level); the last level serves targets
+#: up to ``MAX_TARGET_LENGTH``, longer ones raise as in the oracle
 LADDER = (512, 2048, 8192, 131072)
 #: bias survivors with a quantized-MSV P-value at or below this skip the
 #: device Forward and go straight to the host domaindef pool (negative:
@@ -92,7 +95,8 @@ def resolve_device(device) -> torch.device:
 class _Buckets:
     """Length-bucketed packing of a target block on ``device``: one bucket
     per ladder level, lanes sorted by length, at most ``2**24 / Lmax``
-    lanes each."""
+    lanes each.  Empty targets get no lane (they score nothing, but the
+    engine still counts them into Z)."""
 
     def __init__(self, block: DigitalSequenceBlock, device):
         lengths = np.array([len(s) for s in block], dtype=np.int64)
@@ -245,11 +249,15 @@ class SearchEngine:
         return self._streams[k]
 
     def _survivors(self, rows, need):
-        """Bucket rows [n] and the ``need`` mask [P, n] of a survivor
-        stage, on the engine's device."""
-        return (torch.as_tensor(np.ascontiguousarray(rows, np.int64),
-                                device=self.device),
-                torch.as_tensor(np.ascontiguousarray(need, bool),
+        """Bucket rows [n], the ``need`` mask [P, n] of a survivor stage
+        and its pair list (``_pairs.host_pairs``, built here on the host so
+        the kernel wrapper need not synchronise), on the engine's
+        device."""
+        rows = np.ascontiguousarray(rows, np.int64)
+        need = np.ascontiguousarray(need, bool)
+        return (torch.as_tensor(rows, device=self.device),
+                torch.as_tensor(need, device=self.device),
+                torch.as_tensor(_pairs.host_pairs(rows, need),
                                 device=self.device))
 
     def _bias_host(self, st, pi, codes, lengths, cols):
@@ -276,6 +284,10 @@ class SearchEngine:
         in input order, identical to the sequential pipeline's output."""
         t_setup = time.time()
         queries = list(queries)
+        if any(len(s) > MAX_TARGET_LENGTH for s in targets):
+            raise ValueError(
+                f"sequence length over comparison pipeline limit "
+                f"({MAX_TARGET_LENGTH})")
         buckets = _Buckets(targets, self.device)
         results: List[Optional[TopHits]] = [None] * len(queries)
 
@@ -287,6 +299,13 @@ class SearchEngine:
             for c0 in range(0, len(qidx), P_MAX):
                 states.append(_ChunkState(self, queries,
                                           qidx[c0: c0 + P_MAX], Mp))
+
+        # every target of the block counts into Z once, empty ones too
+        nres = sum(len(s) for s in targets)
+        for st in states:
+            for pli in st.pipelines:
+                pli.nseqs += len(targets)
+                pli.nres += nres
 
         t0 = time.time()
         # profile configuration, packing and upload before the stages
@@ -472,11 +491,6 @@ class SearchEngine:
             st = states[ci]
             idx, codes, lengths, dev = buckets.buckets[bi]
             dx = dx_raw.astype(np.float64)
-            nres = int(lengths.sum())
-            nseq_real = int((lengths > 0).sum())
-            for pli in st.pipelines:
-                pli.nseqs += nseq_real
-                pli.nres += nres
             valid_b = lengths > 0
             L = np.maximum(lengths.astype(np.float64), 1.0)
             nullsc = dev.nullsc_host

@@ -47,9 +47,9 @@ SIGNATURES = {
     # dx, ovf, biaslog, stream
     "msv_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _P, _P, _P, _P],
-    # codes, Lmax, lens, lm, emis_m, emis_i, tr, pair_p, pair_row,
-    # pair_out, npairs, Kp, S, out, stream
-    "vit_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # codes, Lmax, lens, lm, emis, trans, pair_p, pair_row, pair_out,
+    # npairs, Kp, S, route, out, stream
+    "vit_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _P, _P],
     # codes, Lmax, lens, lm, emis, trans, pair_p, pair_row, pair_out,
     # npairs, Kp, S, out, stream

@@ -4,9 +4,10 @@ pair list of the Forward and Viterbi wrappers (``fwd_cuda.py``,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .batch import FWD_WIDE_S, NEGMASS, STRIPES, fwd_stripes
+from .batch import NEGMASS, STRIPES, packed_stripes
 
 
 def check_tensors(want: dict, table=None) -> None:
@@ -30,56 +31,59 @@ def check_tensors(want: dict, table=None) -> None:
         raise ValueError(f"unsupported table shape {tuple(table.shape)}")
 
 
-def check(codes, lens, lm, emis_m, emis_i, tr, rows, need):
-    """Raise on what the Forward/Viterbi kernels do not take."""
-    B, _ = codes.shape
-    P, Kp, S, _ = emis_m.shape
-    n = rows.shape[0]
-    check_tensors({"codes": (codes, torch.uint8, None),
-                   "lens": (lens, torch.int32, (B,)),
-                   "lm": (lm, torch.float32, (B, 4)),
-                   "emis_m": (emis_m, torch.float32, None),
-                   "emis_i": (emis_i, torch.float32, (P, Kp, S, 32)),
-                   "tr": (tr, torch.float32, (P, 8, S, 32)),
-                   "rows": (rows, torch.int64, (n,)),
-                   "need": (need, torch.bool, (P, n))}, emis_m)
-
-
-def check_fwd(codes, lens, lm, emis, trans, rows, need):
-    """Raise on what the Forward kernel does not take: ``emis`` [P, Kp, S,
-    32, 2] and ``trans`` [P, S, 2, 32, 4] for a compiled stripe width
-    ``S``, or from ``S = FWD_WIDE_S`` on ``emis`` [P, Kp, 2, S, 32] and
-    ``trans`` [P, 8, S, 32] (``ops/batch.py``)."""
+def check_packed(codes, lens, lm, emis, trans, rows, need, pairs=None):
+    """Raise on what the Forward and Viterbi kernels do not take:
+    ``emis`` [P, Kp, S, 32, 2] and ``trans`` [P, S, 2, 32, 4] for a
+    compiled stripe width ``S``, or in the wide layout ``emis`` [P, Kp,
+    2, S, 32] and ``trans`` [P, 8, S, 32] (``ops/batch.py``; the kernels
+    take the wide one from ``FWD_WIDE_S`` or ``VIT_WIDE_S`` on);
+    ``pairs``, if given, an int32 [3, npairs] list (:func:`host_pairs`)."""
     B, _ = codes.shape
     P, Kp = emis.shape[:2]
-    S = fwd_stripes(trans)
-    wide = S >= FWD_WIDE_S
-    if S not in STRIPES or Kp > 32 or trans.dim() != (4 if wide else 5):
+    S = packed_stripes(trans)
+    wide = trans.dim() == 4
+    if S not in STRIPES or Kp > 32 or trans.dim() not in (4, 5):
         raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
     n = rows.shape[0]
-    check_tensors({"codes": (codes, torch.uint8, None),
-                   "lens": (lens, torch.int32, (B,)),
-                   "lm": (lm, torch.float32, (B, 4)),
-                   "emis": (emis, torch.float32,
-                            (P, Kp, 2, S, 32) if wide else (P, Kp, S, 32, 2)),
-                   "trans": (trans, torch.float32,
-                             (P, 8, S, 32) if wide else (P, S, 2, 32, 4)),
-                   "rows": (rows, torch.int64, (n,)),
-                   "need": (need, torch.bool, (P, n))})
+    want = {"codes": (codes, torch.uint8, None),
+            "lens": (lens, torch.int32, (B,)),
+            "lm": (lm, torch.float32, (B, 4)),
+            "emis": (emis, torch.float32,
+                     (P, Kp, 2, S, 32) if wide else (P, Kp, S, 32, 2)),
+            "trans": (trans, torch.float32,
+                      (P, 8, S, 32) if wide else (P, S, 2, 32, 4)),
+            "rows": (rows, torch.int64, (n,)),
+            "need": (need, torch.bool, (P, n))}
+    if pairs is not None:
+        want["pairs"] = (pairs, torch.int32, (3, pairs.shape[-1]))
+    check_tensors(want)
 
 
-def pairs(rows, need):
+def host_pairs(rows: np.ndarray, need: np.ndarray) -> np.ndarray:
+    """The pair list of :func:`pairs` built on the host from numpy
+    ``rows`` [n] and ``need`` [P, n]: int32 [3, npairs] holding each
+    needed pair's profile, bucket row and output offset (``p * n +
+    column``), in the order ``need.nonzero()`` gives."""
+    n = need.shape[1]
+    pp, col = np.nonzero(need)
+    return np.stack([pp, np.asarray(rows)[col], pp * n + col]).astype(
+        np.int32)
+
+
+def pairs(rows, need, given=None):
     """Flat pair arrays for the kernels: profile, bucket row and output
     offset (``p * n + column``) of every needed pair, int32 on the
-    device, plus a NEGMASS-filled output [P, n]."""
+    device, plus a NEGMASS-filled output [P, n].  ``given`` is the list
+    of :func:`host_pairs` already on the device; without it the list is
+    built from ``need.nonzero()``, which synchronises with the device."""
     P, n = need.shape
-    pc = need.nonzero()
-    pair_p = pc[:, 0].to(torch.int32).contiguous()
-    pair_row = rows[pc[:, 1]].to(torch.int32).contiguous()
-    pair_out = (pc[:, 0] * n + pc[:, 1]).to(torch.int32).contiguous()
+    if given is None:
+        pc = need.nonzero()
+        given = torch.stack([pc[:, 0], rows[pc[:, 1]],
+                             pc[:, 0] * n + pc[:, 1]]).to(torch.int32)
     out = torch.full((P, n), NEGMASS, dtype=torch.float32,
                      device=need.device)
-    return pair_p, pair_row, pair_out, out
+    return given[0], given[1], given[2], out
 
 
 def dd_levels(step, Mk: int, combine):

@@ -13,20 +13,24 @@ warp lane ``l`` reads its ``S`` slots with coalesced loads:
   ``bias - cost`` (cost 255 in padding), ``msv_scal`` [P, 4] (bias, tec,
   tbm, 0), ``msv_odds`` [P, Kp] bias-filter odds with 0 at the
   nonresidue code;
-* ``vit_msc`` / ``vit_isc`` [P, Kp, S, 32] log emission scores and
-  ``vit_tr`` [P, 8, S, 32] log transitions per model slot (slot ``s`` is
-  state ``k = s + 1``): 0 M->M, 1 I->M, 2 D->M into the slot from slot
-  ``s - 1``; 3 B->M; 4 M->I, 5 I->I within the slot; 6 M->D, 7 D->D out of
-  the slot into slot ``s + 1``.  ``NEGMASS`` marks an absent transition;
+* ``vit_emis`` [P, Kp, S, 32, 2] and ``vit_trans`` [P, S, 2, 32, 4]:
+  the Viterbi kernel's log scores, packed so that a lane reads one
+  slot's (M, I) emission scores of a residue in one 8-byte load and its
+  eight transition scores in two 16-byte loads, each contiguous over
+  the warp.  Transition ``t`` of slot ``s`` (state ``k = s + 1``) is: 0
+  M->M, 1 I->M, 2 D->M into the slot from slot ``s - 1``; 3 B->M; 4
+  M->I, 5 I->I within the slot; 6 M->D, 7 D->D out of the slot into
+  slot ``s + 1``; ``NEGMASS`` marks an absent transition.  From ``S =
+  VIT_WIDE_S`` on, where the kernel reads one value a load, ``vit_emis``
+  is [P, Kp, 2, S, 32] (the M then the I scores of a residue) and
+  ``vit_trans`` [P, 8, S, 32], striped (:func:`unpacked` undoes either
+  layout);
 * ``fwd_ems`` / ``fwd_eis`` / ``fwd_tr``: the same tables in odds space
-  (``exp``, 0 where absent), read by the survivor-rows kernel;
-* ``fwd_emis`` [P, Kp, S, 32, 2] and ``fwd_trans`` [P, S, 2, 32, 4]:
-  the odds tables of the Forward filter kernel, packed so that a lane
-  reads one slot's (M, I) emission odds in one 8-byte load and its
-  eight transition odds (0-3, then 4-7) in two 16-byte loads, each
-  contiguous over the warp; from ``S = FWD_WIDE_S`` on, where the
-  kernel reads one value a load, ``fwd_emis`` [P, Kp, 2, S, 32] (the M
-  then the I odds of a residue) and ``fwd_trans`` [P, 8, S, 32], striped.
+  (``exp``, 0 where absent), striped [P, Kp, S, 32] and [P, 8, S, 32],
+  read by the survivor-rows kernel;
+* ``fwd_emis`` and ``fwd_trans``: the odds tables of the Forward filter
+  kernel in the packed layouts of ``vit_emis`` and ``vit_trans``, wide
+  from ``S = FWD_WIDE_S`` on.
 
 ``SeqDevice`` holds one length bucket of target sequences on an explicit
 device.  The JAX package imports JAX at load, so the packing is
@@ -52,9 +56,10 @@ NEGMASS = -1e30
 #: lane stripe widths the kernels are compiled for (model slots per lane)
 STRIPES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 
-#: stripe width from which the Forward kernel takes the wide table layout
-#: (``csrc/fwd.cu:FWD_WIDE_S``)
+#: stripe widths from which the Forward and the Viterbi kernel take the
+#: wide table layout (``csrc/fwd.cu:FWD_WIDE_S``, ``csrc/vit.cu:VIT_WIDE_S``)
 FWD_WIDE_S = 32
+VIT_WIDE_S = 16
 
 #: padded model width granularity when no ``Mp`` is given
 PAD = 64
@@ -157,15 +162,17 @@ def unstriped(t: torch.Tensor) -> torch.Tensor:
     return t.swapaxes(-1, -2).reshape(*lead, 32 * S)
 
 
-def fwd_stripes(trans: torch.Tensor) -> int:
-    """The stripe width ``S`` of a packed ``fwd_trans`` (either layout)."""
+def packed_stripes(trans: torch.Tensor) -> int:
+    """The stripe width ``S`` of a packed ``fwd_trans`` or ``vit_trans``
+    (either layout)."""
     return trans.shape[2] if trans.dim() == 4 else trans.shape[1]
 
 
-def fwd_unpacked(emis: torch.Tensor, trans: torch.Tensor):
-    """The Forward kernel's packed tables (``fwd_emis``, ``fwd_trans``, in
-    either layout) as plain [P, Kp, Mk] emission odds (M, I) and [P, 8,
-    Mk] transition odds."""
+def unpacked(emis: torch.Tensor, trans: torch.Tensor):
+    """The Forward or the Viterbi kernel's packed tables (``fwd_emis`` and
+    ``fwd_trans``, or ``vit_emis`` and ``vit_trans``, in either layout)
+    as plain [P, Kp, Mk] emission tables (M, I) and a [P, 8, Mk]
+    transition table."""
     if trans.dim() == 4:                       # the wide layout
         return (unstriped(emis[:, :, 0]), unstriped(emis[:, :, 1]),
                 unstriped(trans))
@@ -173,6 +180,21 @@ def fwd_unpacked(emis: torch.Tensor, trans: torch.Tensor):
     tr = trans.swapaxes(2, 3).reshape(P, S, 32, 8)
     return (unstriped(emis[..., 0]), unstriped(emis[..., 1]),
             unstriped(tr.movedim(-1, 1)))
+
+
+def packed(em: np.ndarray, ei: np.ndarray, tr: np.ndarray, wide_s: int):
+    """[P, Kp, Mk] emission tables (M, I) and a [P, 8, Mk] transition
+    table in the packed layouts (module docstring), the wide one from
+    ``wide_s`` slots a lane on, contiguous."""
+    P, _, Mk = em.shape
+    if Mk // 32 >= wide_s:
+        emis = np.stack([striped(em), striped(ei)], axis=2)
+        trans = striped(tr)
+    else:
+        emis = np.stack([striped(em), striped(ei)], axis=-1)
+        trans = np.moveaxis(striped(tr), 1, -1).reshape(
+            P, Mk // 32, 32, 2, 4).swapaxes(2, 3)
+    return np.ascontiguousarray(emis), np.ascontiguousarray(trans)
 
 
 def kernel_tables(f: dict) -> dict:
@@ -213,19 +235,13 @@ def kernel_tables(f: dict) -> dict:
 
     s = np.ascontiguousarray
     ems, eis, otr = _xexp(msc), _xexp(isc), _xexp(tr)
-    if Mk // 32 >= FWD_WIDE_S:
-        emis = np.stack([striped(ems), striped(eis)], axis=2)
-        trans = striped(otr)
-    else:
-        emis = np.stack([striped(ems), striped(eis)], axis=-1)
-        trans = np.moveaxis(striped(otr), 1, -1).reshape(
-            P, Mk // 32, 32, 2, 4).swapaxes(2, 3)
+    vit_emis, vit_trans = packed(msc, isc, tr, VIT_WIDE_S)
+    fwd_emis, fwd_trans = packed(ems, eis, otr, FWD_WIDE_S)
     return {"msv_w16": s(striped(w16)), "msv_scal": scal,
-            "msv_odds": odds, "vit_msc": s(striped(msc)),
-            "vit_isc": s(striped(isc)), "vit_tr": s(striped(tr)),
-            "fwd_ems": s(striped(ems)), "fwd_eis": s(striped(eis)),
-            "fwd_tr": s(striped(otr)), "fwd_emis": s(emis),
-            "fwd_trans": s(trans)}
+            "msv_odds": odds, "vit_emis": vit_emis,
+            "vit_trans": vit_trans, "fwd_ems": s(striped(ems)),
+            "fwd_eis": s(striped(eis)), "fwd_tr": s(striped(otr)),
+            "fwd_emis": fwd_emis, "fwd_trans": fwd_trans}
 
 
 class ProfileBatch(nn.Module):

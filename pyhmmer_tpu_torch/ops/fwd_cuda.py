@@ -15,8 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, _pairs
-from .batch import (NEGMASS, ProfileBatch, SeqDevice, fwd_stripes,
-                    fwd_unpacked)
+from .batch import NEGMASS, ProfileBatch, SeqDevice, packed_stripes, unpacked
 
 #: kernel launches made by :func:`fwd_scores` (reset by the caller)
 launches = 0
@@ -24,28 +23,30 @@ launches = 0
 TINY = 1e-30
 
 
-def forward(pb: ProfileBatch, seq: SeqDevice, rows, need):
+def forward(pb: ProfileBatch, seq: SeqDevice, rows, need, pairs=None):
     """Forward scores [P, n] in nats for the bucket rows ``rows`` [n]
-    (int64) where ``need`` [P, n] is set."""
+    (int64) where ``need`` [P, n] is set (``pairs``: their list from
+    ``_pairs.host_pairs``, on the device, if the caller has it)."""
     return fwd_scores(seq.codes, seq.lens, seq.lm, pb.fwd_emis,
-                      pb.fwd_trans, rows, need)
+                      pb.fwd_trans, rows, need, pairs)
 
 
-def fwd_scores(codes, lens, lm, emis, trans, rows, need):
+def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``lm`` [B, 4] f32
     length model; ``emis`` f32 (M, I) emission odds and ``trans`` f32
     transition odds, packed ([P, Kp, S, 32, 2] and [P, S, 2, 32, 4], or
     from ``S = FWD_WIDE_S`` on [P, Kp, 2, S, 32] and [P, 8, S, 32]:
-    ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool.  Returns
-    scores [P, n] f32 nats."""
-    _pairs.check_fwd(codes, lens, lm, emis, trans, rows, need)
+    ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
+    ``pairs`` None or the int32 [3, npairs] list of ``need``
+    (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
+    _pairs.check_packed(codes, lens, lm, emis, trans, rows, need, pairs)
     if codes.device.type == "cpu":
         return fwd_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     global launches
-    Kp, S = emis.shape[1], fwd_stripes(trans)
-    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need)
+    Kp, S = emis.shape[1], packed_stripes(trans)
+    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, pairs)
     npairs = int(pair_p.shape[0])
     P_ = _build.ptr
     err = _build.lib().fwd_launch(
@@ -57,12 +58,12 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need):
     return out
 
 
-def fwd_plain(codes, lens, lm, emis, trans, rows, need):
+def fwd_plain(codes, lens, lm, emis, trans, rows, need, pairs=None):
     """The Forward scan of ``csrc/fwd.cu`` in plain PyTorch, batched over
     [P, n, Mk] with a loop over sequence rows; the D->D chain is a
-    Hillis-Steele scan of affine maps."""
+    Hillis-Steele scan of affine maps (``pairs`` is not needed)."""
     dev = codes.device
-    ems, eis, tr = fwd_unpacked(emis, trans)
+    ems, eis, tr = unpacked(emis, trans)
     P, Kp, Mk = ems.shape
     n = rows.shape[0]
     out = torch.full((P, n), NEGMASS, dtype=torch.float32, device=dev)

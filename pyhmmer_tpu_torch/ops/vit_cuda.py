@@ -4,8 +4,9 @@
 :func:`vit_plain`, the same function in plain PyTorch, on a CPU tensor.
 It replaces the TPU kernel ``pyhmmer_tpu/ops/vit_pallas.py``
 (``_vit_pallas``).  Only the (profile, column) pairs in ``need`` are
-scored; the others read NEGMASS.  The plain version uses no matmul, so
-no TF32 setting applies to it.
+scored; the others read NEGMASS.  Both read the packed tables
+``vit_emis`` / ``vit_trans`` of ``ops/batch.py``.  The plain version
+uses no matmul, so no TF32 setting applies to it.
 """
 
 from __future__ import annotations
@@ -15,51 +16,63 @@ import math
 import torch
 
 from . import _build, _pairs
-from .batch import NEGMASS, ProfileBatch, SeqDevice, unstriped
+from .batch import NEGMASS, ProfileBatch, SeqDevice, packed_stripes, unpacked
 
 #: kernel launches made by :func:`vit_scores` (reset by the caller)
 launches = 0
 
 LOG_HALF = math.log(0.5)
 
+#: the kernel's code paths (``csrc/vit.cu:launch_vit``): one warp a pair,
+#: or several; ``auto`` picks by the model width and the launch's size,
+#: the others force one (a launch raises where it does not compile)
+ROUTES = {"auto": 0, "warp": 1, "block": 2}
+#: the path :func:`vit_scores` asks for
+route = "auto"
 
-def viterbi(pb: ProfileBatch, seq: SeqDevice, rows, need):
+
+def viterbi(pb: ProfileBatch, seq: SeqDevice, rows, need, pairs=None):
     """Viterbi scores [P, n] in nats for the bucket rows ``rows`` [n]
-    (int64) where ``need`` [P, n] is set."""
-    return vit_scores(seq.codes, seq.lens, seq.lm, pb.vit_msc, pb.vit_isc,
-                      pb.vit_tr, rows, need)
+    (int64) where ``need`` [P, n] is set (``pairs``: their list from
+    ``_pairs.host_pairs``, on the device, if the caller has it)."""
+    return vit_scores(seq.codes, seq.lens, seq.lm, pb.vit_emis,
+                      pb.vit_trans, rows, need, pairs)
 
 
-def vit_scores(codes, lens, lm, msc, isc, tr, rows, need):
+def vit_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``lm`` [B, 4] f32
-    length model; ``msc``/``isc`` [P, Kp, S, 32] f32 log emissions; ``tr``
-    [P, 8, S, 32] f32 log transitions (``ops/batch.py``); ``rows`` [n]
-    int64; ``need`` [P, n] bool.  Returns scores [P, n] f32."""
-    _pairs.check(codes, lens, lm, msc, isc, tr, rows, need)
+    length model (the log loop and move are columns 2 and 3); ``emis``
+    f32 (M, I) log emission scores and ``trans`` f32 log transitions,
+    packed ([P, Kp, S, 32, 2] and [P, S, 2, 32, 4], or from ``S =
+    VIT_WIDE_S`` on [P, Kp, 2, S, 32] and [P, 8, S, 32]:
+    ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
+    ``pairs`` None or the int32 [3, npairs] list of ``need``
+    (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
+    _pairs.check_packed(codes, lens, lm, emis, trans, rows, need, pairs)
     if codes.device.type == "cpu":
-        return vit_plain(codes, lens, lm, msc, isc, tr, rows, need)
+        return vit_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     global launches
-    Kp, S = msc.shape[1:3]
-    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need)
+    Kp, S = emis.shape[1], packed_stripes(trans)
+    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, pairs)
     npairs = int(pair_p.shape[0])
     P_ = _build.ptr
     err = _build.lib().vit_launch(
-        P_(codes), codes.shape[1], P_(lens), P_(lm), P_(msc), P_(isc),
-        P_(tr), P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp,
-        S, P_(out), _build.stream_ptr(codes))
+        P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),
+        P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp, S,
+        ROUTES[route], P_(out), _build.stream_ptr(codes))
     _build.check(err, "vit_launch")
     launches += 1
     return out
 
 
-def vit_plain(codes, lens, lm, msc, isc, tr, rows, need):
+def vit_plain(codes, lens, lm, emis, trans, rows, need, pairs=None):
     """The Viterbi scan of ``csrc/vit.cu`` in plain PyTorch, batched over
     [P, n, Mk] with a loop over sequence rows; the D->D chain is a
-    Hillis-Steele (max, +) scan."""
+    Hillis-Steele (max, +) scan (``pairs`` is not needed)."""
     dev = codes.device
-    msc, isc, tr = (unstriped(t) for t in (msc, isc, tr))
+    msc, isc, tr = unpacked(emis, trans)
     P, Kp, Mk = msc.shape
     n = rows.shape[0]
     out = torch.full((P, n), NEGMASS, dtype=torch.float32, device=dev)

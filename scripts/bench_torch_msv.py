@@ -1,8 +1,8 @@
-"""Time the MSV or the Forward kernel of checkouts of the PyTorch port in
-turns.
+"""Time the MSV, the Forward or the Viterbi kernel of checkouts of the
+PyTorch port in turns.
 
     python3 scripts/bench_torch_msv.py ROOT_A ROOT_B [ROOT_C ...] \
-        [--kernel msv|fwd] [--out FILE]
+        [--kernel msv|fwd|vit] [--out FILE]
 
 Each root is a checkout holding ``pyhmmer_tpu_torch`` (for example this
 tree and a ``git archive`` of its parent, unpacked into a directory that
@@ -27,10 +27,24 @@ Forward parity shapes of ``chip_smoke.py`` (the same chunks, buckets and
 seeded need masks, and the widest chunk against every lane of the
 longest bucket).  Per launch it reports the pairs, P, Mk, Lmax, the DP
 cells (the sum of M x L over the pairs), the time of the call and the
-bound (``chip_smoke.bound``), the device time of the Forward kernel alone
-and of every kernel of the call (``torch.profiler`` over one more call),
-and the scores (so runs of two checkouts can be compared); then the
-wall time and ``s2_fetched`` stage mark of three more smoke searches.
+bound (``chip_smoke.bound``'s rule, with this tree's operation counts),
+the device time of the Forward kernels alone (kernel-only) and of every
+kernel of the call (``torch.profiler`` over five more calls), and the
+scores (so runs of two checkouts can be compared); then the wall time
+and ``s2_fetched`` stage mark of three more smoke searches.
+
+``--kernel vit`` does the same for ``vit_cuda.viterbi``, at the launches
+of one smoke search and of one with the cascade forced (``FORCED``, as
+``chip_smoke.py`` forces it: the launches a Pfam-scale search would
+send), then at the parity shapes and at every chunk width of the smoke
+search against the 512 bucket (25% and 2% of every 8th lane); where the
+checkout's wrapper has
+routes (``vit_cuda.ROUTES``) it also times the kernel-only time of each
+route that compiles at the launch's width, and the route's largest
+score difference from the default's; ``s3_fetched`` is the stage mark.
+Each run also reports the ``-Xptxas -v`` registers and spills of the
+kernel's instances.  The last line summarises, per launch, each run's
+kernel-only and call ms.
 
 The card's name and power limit head the output; the JSON record of
 every run goes to ``--out``.
@@ -43,8 +57,6 @@ import subprocess
 import sys
 import time
 
-#: the Forward kernels' names (in the profiler's keys)
-FWD_KERNELS = ("fwd_kernel<", "fwd_wide_kernel<")
 SHAPES = (("big", 512, 20), ("big", 2048, 20), ("huge", 512, 20),
           ("huge", "longest", 3), ("narrow", 512, 20), ("mid", 512, 20))
 
@@ -65,30 +77,66 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def worker_fwd(root):
+#: per --kernel: the wrapper's module and function, the kernels' names
+#: (in the profiler's keys), and whether the forced cascade's launches
+#: are captured too
+FILTERS = {
+    "fwd": ("fwd_cuda", "forward", ("fwd_kernel<", "fwd_wide_kernel<"),
+            False),
+    "vit": ("vit_cuda", "viterbi", ("vit_kernel<", "vit_wide_kernel<"),
+            True),
+}
+#: routing of chip_smoke.FORCED: every bias survivor takes the device
+#: cascade
+FORCED = {"SPECULATE_P1B": -1.0, "HOST_MIN_PAIRS": 0,
+          "HOST_PAIRS_PER_ROW": 0.0}
+#: calls a launch is profiled over
+PROFILED = 5
+
+
+def worker_filter(root, kernel):
+    """The Forward or Viterbi wrapper of ``root`` at the main path's
+    launches (and the forced cascade's), then at the parity shapes."""
     sys.path.insert(0, root)
+    import importlib
+
     import numpy as np
     import torch
 
     import chip_smoke as C
     from pyhmmer_tpu_torch import _synthetic as syn
     from pyhmmer_tpu_torch import engine as E
-    from pyhmmer_tpu_torch.ops import fwd_cuda
+    from pyhmmer_tpu_torch.ops import _build
 
+    modname, fn, names, forced = FILTERS[kernel]
+    mod = importlib.import_module(f"pyhmmer_tpu_torch.ops.{modname}")
     queries, _, targets, _ = syn.smoke_workload()
     eng = E.SearchEngine(queries[0].alphabet, device="cuda")
     eng.search(queries, targets)
-    calls = []
-    real = fwd_cuda.forward
 
-    def spy(*args):
-        calls.append(args)
-        return real(*args)
-    fwd_cuda.forward = spy
-    try:
-        eng.search(queries, targets)
-    finally:
-        fwd_cuda.forward = real
+    def capture(force):
+        calls = []
+        real = getattr(mod, fn)
+        saved = {k: getattr(E, k) for k in FORCED}
+
+        def spy(*args):
+            calls.append(args)
+            return real(*args)
+        setattr(mod, fn, spy)
+        if force:
+            for k, v in FORCED.items():
+                setattr(E, k, v)
+        try:
+            E.SearchEngine(queries[0].alphabet, device="cuda").search(
+                queries, targets)
+        finally:
+            setattr(mod, fn, real)
+            for k, v in saved.items():
+                setattr(E, k, v)
+        return calls
+    captured = [("main", c) for c in capture(False)]
+    if forced:
+        captured += [("forced", c) for c in capture(True)]
 
     # the parity shapes of chip_smoke.phase_parity, same seeded masks
     coalesced = E.group_queries(queries)
@@ -100,53 +148,94 @@ def worker_fwd(root):
     pbs = {Mp: C.chunk_batch(queries, coalesced[Mp], Mp)
            for Mp in (big, mid, huge)}
     gen = torch.Generator().manual_seed(0)
-    parity = []
     for Mp, Lmax in ((big, 512), (big, 2048), (mid, 512)):
         pb, dev = pbs[Mp], devs[Lmax]
         cols = torch.arange(0, dev.B, 8, device="cuda")
         need = torch.rand((pb.P, len(cols)), generator=gen) < 0.25
-        parity.append(("parity", pb, dev, cols, need.to("cuda"), 20))
+        captured.append(("parity", (pb, dev, cols, need.to("cuda"))))
     pb, dev = pbs[huge], devs[max(devs)]
-    parity.append(("parity", pb, dev, torch.arange(dev.B, device="cuda"),
-                   torch.ones((pb.P, dev.B), dtype=torch.bool,
-                              device="cuda"), 3))
+    captured.append(("parity", (pb, dev, torch.arange(dev.B, device="cuda"),
+                                torch.ones((pb.P, dev.B), dtype=torch.bool,
+                                           device="cuda"))))
+    # every chunk width of the smoke search against the 512 bucket, at a
+    # survivor-like 25% of every 8th lane and at 2% (a launch of a few
+    # dozen pairs, as the main path's are)
+    gen = torch.Generator().manual_seed(1)
+    dev = devs[512]
+    cols = torch.arange(0, dev.B, 8, device="cuda")
+    for Mp in sorted(coalesced):
+        pb = pbs.get(Mp) or C.chunk_batch(queries, coalesced[Mp], Mp)
+        for share in (0.25, 0.02):
+            need = torch.rand((pb.P, len(cols)), generator=gen) < share
+            captured.append((f"width{share}", (pb, dev, cols,
+                                               need.to("cuda"))))
 
-    out = {"root": root, "launches": []}
-    for kind, pb, dev, rows, need, reps in (
-            [("main", *c, 20) for c in calls] + parity):
-        ms = cuda_ms(lambda: fwd_cuda.forward(pb, dev, rows, need), reps)
+    def kernel_ms(call):
+        """Device ms of one launch of the kernels (their total over the
+        launches the profiler recorded: it may drop one) and of every
+        kernel of a call."""
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            scores = fwd_cuda.forward(pb, dev, rows, need)
+            for _ in range(PROFILED):
+                call()
             torch.cuda.synchronize()
-        dev_us = {e.key: getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages()}
-        kernel_us = sum(us for k, us in dev_us.items()
-                        if any(n in k for n in FWD_KERNELS))
+        events = [(e.key, getattr(e, "self_device_time_total", 0.0),
+                   e.count) for e in prof.key_averages()]
+        mine = [(us, n) for k, us, n in events
+                if any(name in k for name in names)]
+        return (sum(us for us, _ in mine) / 1e3
+                / max(1, sum(n for _, n in mine)),
+                sum(us for _, us, _ in events) / 1e3 / PROFILED)
+
+    routes = list(getattr(mod, "ROUTES", {}))[1:]
+    out = {"root": root, "launches": [], "ptxas": {
+        k: v for k, v in C.ptxas_summary(_build.ptxas_report()).items()
+        if any(k.startswith(n) for n in names)}}
+    for kind, args in captured:
+        pb, dev, rows, need = args[:4]
+        call = lambda: getattr(mod, fn)(*args)  # noqa: E731
+        reps = 3 if dev.Lmax > 8192 else 20
+        ms = cuda_ms(call, reps)
+        k_ms, d_ms = kernel_ms(call)
+        scores = call()
+        route_ms = {}
+        for route in routes:
+            mod.route = route
+            try:
+                route_ms[route] = kernel_ms(call)[0]
+                err = (call() - scores)[need].abs().max().item()
+                route_ms[route + "_max_abs_diff"] = err
+            except RuntimeError:
+                pass                     # not compiled at this width
+            finally:
+                mod.route = "auto"
         lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[rows.cpu()]
         M = torch.as_tensor(pb.M, dtype=torch.float64)
         cells = float((M[:, None] * lens[None, :])[need.cpu()].sum())
-        # the packed tables hold the bytes of the striped ones
-        args = (dev.codes, dev.lens, dev.lm, pb.fwd_ems, pb.fwd_eis,
-                pb.fwd_tr, rows, need)
-        res = torch.empty(need.shape, dtype=torch.float32)
+        # inputs read once and the output written once (the tables of
+        # both kernels hold the same bytes in every layout)
+        nbytes = sum(t.numel() * t.element_size() for t in (
+            dev.codes, dev.lens, dev.lm, pb.fwd_emis, pb.fwd_trans, rows,
+            need)) + 4 * need.numel()
         out["launches"].append(dict(
             kind=kind, npairs=int(need.sum()), P=pb.P, Mk=32 * pb.S,
-            Lmax=dev.Lmax, n=int(rows.shape[0]), cells=cells, ms=ms,
-            reps=reps, kernel_ms=kernel_us / 1e3,
-            device_ms=sum(dev_us.values()) / 1e3,
-            scores=scores[need].cpu().tolist(),
-            **C.bound(C.FILTER_FLOPS * cells / C.F32_RATE, args, (res,))))
-    out["s2_fetched_s"], out["wall_s"] = [], []
+            Lmax=dev.Lmax, n=int(rows.shape[0]), cells=cells,
+            bytes=nbytes, ms=ms, reps=reps, kernel_ms=k_ms, device_ms=d_ms,
+            route_kernel_ms=route_ms, scores=scores[need].cpu().tolist()))
+    out["stage_fetched_s"], out["wall_s"] = [], []
+    mark = {"fwd": "s2_fetched", "vit": "s3_fetched"}[kernel]
     for _ in range(3):
         torch.cuda.synchronize()
         t = time.time()
         eng.search(queries, targets)
         torch.cuda.synchronize()
         out["wall_s"].append(time.time() - t)
-        out["s2_fetched_s"].append(eng.last_timing["s2_fetched"])
-    out["main_ms_total"] = float(np.sum([r["ms"] for r in out["launches"]
-                                         if r["kind"] == "main"]))
+        out["stage_fetched_s"].append(eng.last_timing[mark])
+    for kind in ("main", "forced"):
+        out[f"{kind}_ms_total"] = float(np.sum(
+            [r["ms"] for r in out["launches"] if r["kind"] == kind]))
+        out[f"{kind}_kernel_ms_total"] = float(np.sum(
+            [r["kernel_ms"] for r in out["launches"] if r["kind"] == kind]))
     print(json.dumps(out), flush=True)
 
 
@@ -214,16 +303,54 @@ def worker(root):
     print(json.dumps(out), flush=True)
 
 
+def add_bounds(runs, kernel):
+    """Each launch's bound (``chip_smoke.bound``'s rule with this tree's
+    operation counts): Forward 16 float operations a cell at the FMA
+    rate, Viterbi ``chip_smoke.vit_ops_s``."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as C
+    for run in runs:
+        for r in run["launches"]:
+            ops_s = (C.vit_ops_s(r["cells"]) if kernel == "vit"
+                     else C.FILTER_FLOPS * r["cells"] / C.F32_RATE)
+            bytes_s = r["bytes"] / C.HBM_RATE
+            r["bound_ms"] = 1e3 * max(ops_s, bytes_s)
+            r["bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
+
+
+def summary(runs):
+    """Per launch (in capture order), each run's kernel-only ms, and the
+    largest score difference between runs."""
+    rows = []
+    for i in range(min(len(run["launches"]) for run in runs)):
+        r0 = runs[0]["launches"][i]
+        rs = [run["launches"][i] for run in runs]
+        diff = max(max((abs(a - b) for a, b in zip(r0["scores"],
+                                                   r["scores"])),
+                       default=0.0) for r in rs)
+        rows.append({k: r0[k] for k in ("kind", "npairs", "P", "Mk", "Lmax",
+                                        "bound_ms")}
+                    | {"kernel_ms": [r["kernel_ms"] for r in rs],
+                       "ms": [r["ms"] for r in rs],
+                       "routes": [r["route_kernel_ms"] for r in rs],
+                       "max_score_diff": diff})
+    return {"per_launch": rows}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--worker")
-    ap.add_argument("--kernel", choices=("msv", "fwd"), default="msv")
+    ap.add_argument("--kernel", choices=("msv", "fwd", "vit"),
+                    default="msv")
     ap.add_argument("--out")
     args = ap.parse_args()
     if args.worker:
-        {"msv": worker, "fwd": worker_fwd}[args.kernel](
-            os.path.abspath(args.worker))
+        if args.kernel == "msv":
+            worker(os.path.abspath(args.worker))
+        else:
+            worker_filter(os.path.abspath(args.worker), args.kernel)
         return
     roots = [os.path.abspath(r) for r in args.roots]
     smi = subprocess.run(
@@ -241,6 +368,9 @@ def main():
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps({k: v for k, v in runs[-1].items()
                           if k != "launches"}), flush=True)
+    if args.kernel != "msv":
+        add_bounds(runs, args.kernel)
+        print(json.dumps(summary(runs)), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

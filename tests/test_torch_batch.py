@@ -74,22 +74,44 @@ def test_profile_batch_from_arrays_round_trips(stacks, Mp):
 def test_kernel_tables_layout(stacks):
     """The tables are striped (lane l holds slots l*S..l*S+S-1); slot s
     of the Viterbi/Forward tables is state k = s + 1; absent transitions
-    are NEGMASS in log space and 0 in odds space."""
+    are NEGMASS in log space and 0 in odds space.  The Viterbi tables are
+    packed: slot j of lane l holds its (M, I) log emission scores of a
+    residue side by side and its 8 log transitions in two planes of 4,
+    and they unpack to exactly the JAX package's log scores."""
     _, jpb, tpb = stacks[128]
     S = tpb.S
     Mk = 32 * S
-    assert tpb.vit_tr.shape == (tpb.P, 8, S, 32)
-    assert tpb.vit_tr[0, 3, 1, 2] == TB.unstriped(tpb.vit_tr)[0, 3, 2 * S + 1]
-    tr = TB.unstriped(tpb.vit_tr).numpy()
+    P, Kp = tpb.P, tpb.Kp
+    assert S < TB.VIT_WIDE_S
+    assert tpb.vit_emis.shape == (P, Kp, S, 32, 2)
+    assert tpb.vit_trans.shape == (P, S, 2, 32, 4)
+    assert TB.packed_stripes(tpb.vit_trans) == S
+    msc, isc, tr = TB.unpacked(tpb.vit_emis, tpb.vit_trans)
+    assert tpb.vit_trans[0, 1, 0, 2, 3] == tr[0, 3, 2 * S + 1]
+    assert tpb.vit_trans[0, 1, 1, 2, 2] == tr[0, 6, 2 * S + 1]
+    assert tpb.vit_emis[0, 5, 1, 2, 1] == isc[0, 5, 2 * S + 1]
+    np.testing.assert_array_equal(msc.numpy()[:, :, :jpb.Mp], jpb.msc)
+    np.testing.assert_array_equal(isc.numpy()[:, :, :jpb.Mp], jpb.isc)
+    assert (msc.numpy()[:, :, jpb.Mp:] == TB.NEGMASS).all()
+    tr = tr.numpy()
     assert tr.shape == (tpb.P, 8, Mk)
     np.testing.assert_array_equal(tr[:, 0, 1:jpb.Mp], jpb.tMM[:, 1:])
+    np.testing.assert_array_equal(tr[:, 1, 1:jpb.Mp], jpb.tIM[:, 1:])
+    np.testing.assert_array_equal(tr[:, 2, 1:jpb.Mp], jpb.tDM[:, 1:])
     np.testing.assert_array_equal(tr[:, 3, :jpb.Mp], jpb.tBM)
     np.testing.assert_array_equal(tr[:, 4, :jpb.Mp], jpb.tMI[:, 1:])
+    np.testing.assert_array_equal(tr[:, 5, :jpb.Mp], jpb.tII[:, 1:])
     assert (tr[:, :3, 0] == TB.NEGMASS).all()
     for p, M in enumerate(jpb.M):
+        np.testing.assert_array_equal(tr[p, 6, :M - 1], jpb.tMD[p, 1:M])
+        np.testing.assert_array_equal(tr[p, 7, :M - 1], jpb.tDD[p, 1:M])
         assert (tr[p, 6:, M - 1:] == TB.NEGMASS).all()
         assert (TB.unstriped(tpb.fwd_tr).numpy()[p, 6:, M - 1:]
                 == 0.0).all()
+    # the odds tables are the log tables through exp
+    ems, eis, otr = TB.unpacked(tpb.fwd_emis, tpb.fwd_trans)
+    np.testing.assert_array_equal(otr.numpy(), TB._xexp(tr))
+    np.testing.assert_array_equal(ems.numpy(), TB._xexp(msc.numpy()))
     # the MSV table is pre-biased, bias - cost, in 16 bits
     assert tpb.msv_w16.dtype == torch.int16
     w = TB.unstriped(tpb.msv_w16).numpy()
@@ -130,6 +152,30 @@ def test_seq_device_equals_jax(stacks):
     assert tdev.has_nonres.any() and not tdev.has_nonres.all()
     np.testing.assert_array_equal(tdev.nullsc_host, jdev.nullsc_host)
     np.testing.assert_array_equal(tdev.tjbu_host, jdev.tjbu_host)
+
+
+@pytest.mark.parametrize("Mp", [Mp for _, Mp in STACKS])
+def test_viterbi_tables_keep_their_bytes(stacks, Mp):
+    """The packed Viterbi tables hold exactly the bytes of one striped
+    [P, Kp, Mk] table each for M and I and one [P, 8, Mk] of
+    transitions; from ``VIT_WIDE_S`` slots a lane on (Mp 448 has 16, 832
+    has 32) they are those striped tables, the M then the I scores of a
+    residue."""
+    _, jpb, tpb = stacks[Mp]
+    P, Kp, S = tpb.P, tpb.Kp, tpb.S
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (tpb.vit_emis, tpb.vit_trans))
+    assert nbytes == 4 * P * 32 * S * (2 * Kp + 8)
+    msc, isc, tr = TB.unpacked(tpb.vit_emis, tpb.vit_trans)
+    np.testing.assert_array_equal(msc.numpy()[:, :, :jpb.Mp], jpb.msc)
+    assert (S >= TB.VIT_WIDE_S) == (Mp > 384)
+    if S >= TB.VIT_WIDE_S:
+        assert tpb.vit_emis.shape == (P, Kp, 2, S, 32)
+        assert tpb.vit_trans.shape == (P, 8, S, 32)
+        assert torch.equal(TB.unstriped(tpb.vit_emis[:, :, 1]), isc)
+        assert torch.equal(TB.unstriped(tpb.vit_trans), tr)
+    else:
+        assert tpb.vit_trans.dim() == 5
 
 
 @pytest.mark.parametrize("x,m,want", [(0, 32, 0), (1, 32, 32), (32, 32, 32),

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,7 +20,10 @@ from pyhmmer_tpu.plan7.background import Background
 from pyhmmer_tpu.plan7.builder import Builder
 import pyhmmer_tpu_torch
 from pyhmmer_tpu_torch import _synthetic as syn
-from pyhmmer_tpu_torch.easel import DigitalSequenceBlock, SequenceFile
+from pyhmmer_tpu_torch.easel import (DigitalSequence, DigitalSequenceBlock,
+                                     SequenceFile)
+from pyhmmer_tpu_torch.ops import _pairs
+from pyhmmer_tpu_torch.plan7 import Pipeline
 from test_torch_host import jax_block, jax_hmm, port_hmm
 
 # the plain versions loop over small tensors: one intra-op thread per
@@ -66,8 +70,10 @@ def test_matches_jax_engine(workload):
     """Against the JAX engine on the CPU, over the targets of the
     shortest length bucket (one XLA compilation per chunk)."""
     hmms, targets, _, _ = workload
+    # no empty target: the JAX engine leaves those out of Z (the port
+    # counts them, as the oracle does)
     short = DigitalSequenceBlock(hmms[0].alphabet,
-                                 [s for s in targets if len(s) <= 512])
+                                 [s for s in targets if 0 < len(s) <= 512])
     port = list(pyhmmer_tpu_torch.hmmsearch(hmms, short, device="cpu"))
     jax_engine = list(jax_hmmer.hmmsearch([jax_hmm(h) for h in hmms],
                                           jax_block(short)))
@@ -153,3 +159,82 @@ def test_search_never_imports_jax(device_rows):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("no jax")
+
+
+@pytest.fixture(scope="module")
+def smoke_model():
+    """The smallest smoke model (M 50, calibrated evparams cached)."""
+    return syn.smoke_models()[:1]
+
+
+def with_empty(models, n, seed, at):
+    """``n`` targets with planted domains, and empty targets inserted at
+    the places ``at``."""
+    targets, _ = syn.make_targets(models, n, seed=seed)
+    seqs = list(targets)
+    for k in at:
+        seqs.insert(k, DigitalSequence(models[0].alphabet,
+                                       name=b"empty%02d" % k,
+                                       sequence=np.zeros(0, np.uint8)))
+    return DigitalSequenceBlock(models[0].alphabet, seqs)
+
+
+@pytest.mark.parametrize("forced", [False, True], ids=["default", "forced"])
+def test_empty_targets_count_into_z(smoke_model, monkeypatch, forced):
+    """5 targets, 2 of them empty: Z and every reported row (E-values
+    included) equal the oracle's, which counts every target."""
+    if forced:
+        force_device_cascade(monkeypatch)
+    targets = with_empty(smoke_model, 3, seed=11, at=(0, 3))
+    assert len(targets) == 5 and sum(len(s) == 0 for s in targets) == 2
+    want = Pipeline(targets.alphabet).search_hmm(smoke_model[0], targets)
+    got = pyhmmer_tpu_torch.SearchEngine(
+        targets.alphabet, device="cpu").search(smoke_model, targets)[0]
+    assert want.Z == 5.0 and got.Z == want.Z
+    assert want.reported and rows(got) == rows(want)
+
+
+def test_all_empty_block_counts_into_z(smoke_model):
+    targets = with_empty(smoke_model, 0, seed=12, at=(0, 1))
+    got = pyhmmer_tpu_torch.SearchEngine(
+        targets.alphabet, device="cpu").search(smoke_model, targets)[0]
+    assert got.Z == 2.0 and not got.reported
+
+
+@pytest.mark.parametrize("L", [100_001, 140_000])
+def test_target_over_the_length_limit_raises(smoke_model, L):
+    """A target longer than ``MAX_TARGET_LENGTH`` raises the oracle's
+    ``ValueError``, before anything is searched."""
+    targets, _ = syn.make_targets(smoke_model, 2, seed=13)
+    long = DigitalSequence(smoke_model[0].alphabet, name=b"long",
+                           sequence=np.zeros(L, np.uint8))
+    block = DigitalSequenceBlock(targets.alphabet, [*targets, long])
+    with pytest.raises(ValueError) as oracle:
+        Pipeline(block.alphabet).search_hmm(smoke_model[0], block)
+    with pytest.raises(ValueError) as port:
+        pyhmmer_tpu_torch.SearchEngine(block.alphabet, device="cpu").search(
+            smoke_model, block)
+    assert str(port.value) == str(oracle.value)
+    assert "100000" in str(port.value)
+
+
+@pytest.mark.parametrize("P,n,density", [(3, 40, 0.5), (5, 17, 0.1),
+                                         (1, 9, 1.0), (4, 12, 0.0),
+                                         (2, 0, 0.5)],
+                         ids=["half", "sparse", "full", "empty", "no_cols"])
+def test_host_pair_list_is_the_nonzero_order(P, n, density):
+    """The engine's host-built pair list equals the one the wrapper builds
+    from ``need.nonzero()`` on the device: same pairs, same order."""
+    rng = np.random.default_rng(P * 100 + n)
+    rows = rng.permutation(3 * n + 1)[:n].astype(np.int64)
+    need = rng.random((P, n)) < density
+    host = _pairs.host_pairs(rows, need)
+    assert host.dtype == np.int32 and host.shape == (3, int(need.sum()))
+    pair_p, pair_row, pair_out, out = _pairs.pairs(torch.from_numpy(rows),
+                                                   torch.from_numpy(need))
+    assert torch.equal(torch.from_numpy(host),
+                       torch.stack([pair_p, pair_row, pair_out]))
+    given = _pairs.pairs(torch.from_numpy(rows), torch.from_numpy(need),
+                         torch.from_numpy(host))
+    assert all(torch.equal(a, b) for a, b in zip(given, (pair_p, pair_row,
+                                                         pair_out, out)))

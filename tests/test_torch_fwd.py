@@ -214,10 +214,10 @@ def test_packed_tables_hold_the_odds_tables(narrow):
     planes of 4, each plane of a slot contiguous over the warp."""
     tpb = narrow.tpb
     P, Kp, S = tpb.fwd_emis.shape[:3]
-    assert S == tpb.S == TB.fwd_stripes(tpb.fwd_trans) < TB.FWD_WIDE_S
+    assert S == tpb.S == TB.packed_stripes(tpb.fwd_trans) < TB.FWD_WIDE_S
     assert tpb.fwd_emis.shape == (P, Kp, S, 32, 2)
     assert tpb.fwd_trans.shape == (P, S, 2, 32, 4)
-    ems, eis, tr = TB.fwd_unpacked(tpb.fwd_emis, tpb.fwd_trans)
+    ems, eis, tr = TB.unpacked(tpb.fwd_emis, tpb.fwd_trans)
     assert torch.equal(ems, TB.unstriped(tpb.fwd_ems))
     assert torch.equal(eis, TB.unstriped(tpb.fwd_eis))
     assert torch.equal(tr, TB.unstriped(tpb.fwd_tr))
@@ -244,7 +244,7 @@ def test_wide_tables_are_striped(case):
     assert torch.equal(tpb.fwd_emis[:, :, 0], tpb.fwd_ems)
     assert torch.equal(tpb.fwd_emis[:, :, 1], tpb.fwd_eis)
     assert torch.equal(tpb.fwd_trans, tpb.fwd_tr)
-    ems, eis, tr = TB.fwd_unpacked(tpb.fwd_emis, tpb.fwd_trans)
+    ems, eis, tr = TB.unpacked(tpb.fwd_emis, tpb.fwd_trans)
     assert torch.equal(tr, TB.unstriped(tpb.fwd_tr))
 
 

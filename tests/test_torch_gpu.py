@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card (MSV: ovf identical, dx exact on every pair the kernel does not
-flag, biaslog within 1e-4 nats; Viterbi <= 1e-3 nats; Forward <= 5e-3 nats; the survivor
+flag, biaslog within 1e-4 nats; Viterbi <= 1e-3 nats on every route of
+its kernel; Forward <= 5e-3 nats; the survivor
 rows' scores within 2e-3 nats and their decoded rows within the JAX
 package's bars; the f32 summation order being the only difference).
 Marked ``gpu``: they skip where there is no CUDA device.  On the card,
@@ -143,7 +144,7 @@ def test_survivor_kernels_match_plain(case, name):
         "fwd": (fwd_cuda, fwd_cuda.fwd_scores, fwd_cuda.fwd_plain, FWD_TOL,
                 ("fwd_emis", "fwd_trans")),
         "vit": (vit_cuda, vit_cuda.vit_scores, vit_cuda.vit_plain, VIT_TOL,
-                ("vit_msc", "vit_isc", "vit_tr"))}[name]
+                ("vit_emis", "vit_trans"))}[name]
     dev = case.dev
     args = (dev.codes, dev.lens, dev.lm,
             *(getattr(case.pb, t) for t in tabs), case.rows, case.need)
@@ -229,15 +230,113 @@ def test_fwd_long_narrow_lanes(cuda):
     assert (k - p)[live].abs().max().item() <= FWD_TOL
 
 
+def vit_routes(S):
+    """The Viterbi kernel's routes that compile at stripe width ``S``
+    (``csrc/vit.cu:launch_vit``)."""
+    return [r for r, ok in (("warp", S <= 24),
+                            ("block", S >= TB.VIT_WIDE_S)) if ok]
+
+
+def assert_vit_routes_match_plain(pb, dev, rows, need, monkeypatch):
+    """Every route of the Viterbi kernel at ``pb``'s width, and the
+    default, against ``vit_plain`` within ``VIT_TOL``; pairs outside
+    ``need`` keep NEGMASS."""
+    args = (dev.codes, dev.lens, dev.lm, pb.vit_emis, pb.vit_trans, rows,
+            need)
+    p = vit_cuda.vit_plain(*args)
+    live = need & (p > -1e29)
+    assert bool(live.any())
+    for route in ["auto", *vit_routes(pb.S)]:
+        monkeypatch.setattr(vit_cuda, "route", route)
+        before = vit_cuda.launches
+        k = vit_cuda.vit_scores(*args)
+        assert vit_cuda.launches == before + 1
+        torch.cuda.synchronize()
+        assert (k[~need] == TB.NEGMASS).all(), route
+        assert torch.equal(k > -1e29, live), route
+        assert (k - p)[live].abs().max().item() <= VIT_TOL, route
+
+
+@pytest.mark.parametrize("Ms,Mp", [((12, 30), 32), ((20, 50, 60), 64),
+                                   ((70, 90), 96), ((150, 170, 190), 192),
+                                   ((200, 250), 256), ((300, 380), 384),
+                                   ((420, 500), 512), ((700, 760), 768)],
+                         ids=["Mk32", "Mk64", "Mk96", "Mk192", "Mk256",
+                              "Mk384", "Mk512", "Mk768"])
+def test_vit_routes_match_plain(cuda, Ms, Mp, monkeypatch):
+    """The Viterbi kernel's code paths: one warp a pair with the
+    transitions in registers (up to 8 slots a lane), with the next row's
+    emissions loaded ahead (up to 16), and the block route (several warps
+    a pair, from 16, where the default takes it for a launch that fits
+    the card at once), on 61 lanes of 1 to 500 residues with a random
+    need mask."""
+    hmms = syn.sample_models(Ms, seed=Mp + 21)
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                     multihit=True)
+                          for h in hmms], Mp=Mp).to(cuda)
+    codes, lengths = syn.make_lanes(hmms, 61, 500, seed=Mp + 23)
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    gen = torch.Generator().manual_seed(Mp)
+    rows = torch.randperm(61, generator=gen).to(cuda)
+    need = (torch.rand((len(Ms), 61), generator=gen) < 0.6).to(cuda)
+    assert_vit_routes_match_plain(pb, dev, rows, need, monkeypatch)
+
+
+@pytest.mark.parametrize("Ms,Mp", [((40, 100, 170), 192), ((1000,), 1024)],
+                         ids=["Mk192", "Mk1024"])
+def test_vit_long_bucket(cuda, Ms, Mp, monkeypatch):
+    """A bucket of the 131072 ladder level, as the engine packs it: lanes
+    of 9,000 and 35,000 background residues, the long one with a planted
+    domain of each model, beside short lanes, on every route (at Mk1024
+    the block route with 4 warps a pair)."""
+    hmms = syn.sample_models(Ms, seed=Mp + 31)
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                     multihit=True)
+                          for h in hmms], Mp=Mp).to(cuda)
+    short, slens = syn.make_lanes(hmms, 14, 320, seed=Mp + 33)
+    codes = np.full((16, 131072), aa.nonresidue_code, np.uint8)
+    codes[:14, :320] = short
+    rng = np.random.default_rng(Mp + 35)
+    f = np.asarray(bg.residue_frequencies, np.float64)
+    codes[14:, :35000] = rng.choice(len(f), size=(2, 35000), p=f / f.sum())
+    for k, h in enumerate(hmms):
+        dom = syn.plant(h, rng, 0.5)
+        codes[15, 9000 * k + 500: 9000 * k + 500 + len(dom)] = dom
+    codes[14, 9000:] = aa.nonresidue_code
+    lengths = np.concatenate([slens, [9000, 35000]])
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    rows = torch.arange(16, device=cuda)
+    need = torch.ones((len(Ms), 16), dtype=torch.bool, device=cuda)
+    need[0, 2] = False
+    assert_vit_routes_match_plain(pb, dev, rows, need, monkeypatch)
+
+
+def test_vit_route_not_compiled_raises(case, monkeypatch):
+    """A route that does not compile at the width raises; nothing falls
+    back."""
+    S = case.pb.S
+    missing = [r for r in vit_cuda.ROUTES if r not in vit_routes(S) + ["auto"]]
+    dev = case.dev
+    for route in missing:
+        monkeypatch.setattr(vit_cuda, "route", route)
+        with pytest.raises(RuntimeError, match="vit_launch"):
+            vit_cuda.viterbi(case.pb, dev, case.rows, case.need)
+
+
 def test_wrapper_rejects_mixed_devices(case):
     pb, dev = case.pb, case.dev
     with pytest.raises(ValueError):
         msv_cuda.msv_scores(dev.codes, dev.lens.cpu(), pb.msv_w16,
                             pb.msv_scal, pb.msv_odds, dev.tjb, dev.p1)
     with pytest.raises(ValueError):
-        vit_cuda.vit_scores(dev.codes, dev.lens, dev.lm, pb.vit_msc,
-                            pb.vit_isc, pb.vit_tr, case.rows.cpu(),
-                            case.need)
+        vit_cuda.vit_scores(dev.codes, dev.lens, dev.lm, pb.vit_emis,
+                            pb.vit_trans, case.rows.cpu(), case.need)
 
 
 def test_engine_on_cuda_launches_the_kernels(cuda, monkeypatch):

@@ -2,25 +2,35 @@
 (``pyhmmer_tpu_torch.ops.vit_cuda``), against the JAX package's XLA scan
 ``ops.batch._viterbi_kernel`` and the float64 oracle ``ops.reference``,
 within 0.05 nats, on padded widths on both sides of 384 and 768 and
-with a ``need`` mask holding dead pairs.  On the CPU the wrapper runs
-the kernel's plain version."""
+with a ``need`` mask holding dead pairs; at Mk96 and at 16 and 32 slots
+a lane also against the Pallas Viterbi kernel itself
+(``vit_pallas._vit_pallas``, in interpret mode).  On the CPU the wrapper
+runs the kernel's plain version over the packed tables."""
 
+import os
+import sys
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from pyhmmer_tpu.ops import batch as JB
-from pyhmmer_tpu.ops import reference as ref
-from pyhmmer_tpu.plan7.background import Background
-from pyhmmer_tpu.plan7.profile import Profile
-from pyhmmer_tpu_torch import _synthetic as syn
-from pyhmmer_tpu_torch.ops import batch as TB
-from pyhmmer_tpu_torch.ops import vit_cuda
-from pyhmmer_tpu_torch.plan7 import Background as TBackground
-from pyhmmer_tpu_torch.plan7 import Profile as TProfile
-from test_torch_host import jax_hmm
+# the Pallas Viterbi runs through the Pallas interpreter; the flag is
+# read when the module is imported
+os.environ["PYHMMER_TPU_PALLAS_INTERPRET"] = "1"
+sys.modules.pop("pyhmmer_tpu.ops.vit_pallas", None)
+
+from pyhmmer_tpu.ops import batch as JB  # noqa: E402
+from pyhmmer_tpu.ops import reference as ref  # noqa: E402
+from pyhmmer_tpu.ops import vit_pallas as VP  # noqa: E402
+from pyhmmer_tpu.plan7.background import Background  # noqa: E402
+from pyhmmer_tpu.plan7.profile import Profile  # noqa: E402
+from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
+from pyhmmer_tpu_torch.ops import batch as TB  # noqa: E402
+from pyhmmer_tpu_torch.ops import vit_cuda  # noqa: E402
+from pyhmmer_tpu_torch.plan7 import Background as TBackground  # noqa: E402
+from pyhmmer_tpu_torch.plan7 import Profile as TProfile  # noqa: E402
+from test_torch_host import jax_hmm  # noqa: E402
 
 # the plain versions loop over small tensors: one intra-op thread per
 # test process keeps pytest-xdist workers from oversubscribing the cores
@@ -96,3 +106,37 @@ def test_no_needed_pair_is_a_no_op(case):
     need = torch.zeros((tpb.P, 4), dtype=torch.bool)
     out = vit_cuda.viterbi(tpb, case.dev, rows, need)
     assert out.shape == (tpb.P, 4) and (out == TB.NEGMASS).all()
+
+
+@pytest.mark.parametrize("Ms,Mp", [((50, 70, 90), 96), ((480,), 512),
+                                   ((1000,), 1024)],
+                         ids=["Mk96", "Mk512", "Mk1024"])
+def test_matches_pallas_viterbi(Ms, Mp):
+    """The JAX package's Pallas Viterbi kernel (``_vit_pallas``, run as
+    ``tests/test_pallas_kernels.py`` runs it, through the interpreter, on
+    one lane tile) and the plain version over the packed tables score
+    the same lanes within 0.05 nats: at 3 slots a lane (transitions in
+    registers on the card), 16 (the wide layout) and 32."""
+    models = syn.sample_models(Ms, seed=Mp + 1)
+    hmms = [jax_hmm(h) for h in models]
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    profs = [Profile(h.M, aa).configure(h, bg, 400, multihit=True)
+             for h in hmms]
+    n, Lmax = 8, 72
+    codes, lengths = syn.make_lanes(models, n, Lmax, seed=Mp + 4)
+    t = VP.build_vit_tensors(JB.ProfileBatch(profs, Mp=Mp))
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code)
+    lm = dev.lm.numpy().T.copy()
+    want = np.asarray(VP._vit_pallas(
+        lengths.astype(np.int32)[None, :], codes.T.astype(np.int32),
+        t["msc"], t["isc"], t["tr"], lm,
+        np.array([[Lmax]], dtype=np.int32)))
+    tpb = TB.ProfileBatch(port_profiles(models), Mp=Mp)
+    assert (tpb.S >= TB.VIT_WIDE_S) == (Mp >= 512)
+    got = vit_cuda.viterbi(tpb, dev, torch.arange(n),
+                           torch.ones((len(Ms), n), dtype=torch.bool)).numpy()
+    live = want > -1e29
+    assert np.array_equal(got > -1e29, live) and live.sum() >= n
+    err = np.abs(got - want)[live]
+    assert err.max() < BAR, err.max()
