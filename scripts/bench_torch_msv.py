@@ -31,7 +31,8 @@ bound (``chip_smoke.bound``'s rule, with this tree's operation counts),
 the device time of the Forward kernels alone (kernel-only) and of every
 kernel of the call (``torch.profiler`` over five more calls), and the
 scores (so runs of two checkouts can be compared); then the wall time
-and ``s2_fetched`` stage mark of three more smoke searches.
+and ``s2_fetched`` stage mark of three more smoke searches, and their
+peak device memory (allocated blocks and requested bytes).
 
 ``--kernel vit`` does the same for ``vit_cuda.viterbi``, at the launches
 of one smoke search and of one with the cascade forced (``FORCED``, as
@@ -224,6 +225,7 @@ def worker_filter(root, kernel):
             route_kernel_ms=route_ms, scores=scores[need].cpu().tolist()))
     out["stage_fetched_s"], out["wall_s"] = [], []
     mark = {"fwd": "s2_fetched", "vit": "s3_fetched"}[kernel]
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         torch.cuda.synchronize()
         t = time.time()
@@ -231,6 +233,11 @@ def worker_filter(root, kernel):
         torch.cuda.synchronize()
         out["wall_s"].append(time.time() - t)
         out["stage_fetched_s"].append(eng.last_timing[mark])
+    # peak device memory of the three searches, as the allocator counts
+    # it (blocks) and as the tensors asked for it
+    stats = torch.cuda.memory_stats()
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    out["peak_requested"] = stats.get("requested_bytes.all.peak")
     for kind in ("main", "forced"):
         out[f"{kind}_ms_total"] = float(np.sum(
             [r["ms"] for r in out["launches"] if r["kind"] == kind]))
