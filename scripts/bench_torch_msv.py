@@ -84,7 +84,7 @@ def cuda_ms(fn, reps):
 FILTERS = {
     "fwd": ("fwd_cuda", "forward", ("fwd_kernel<", "fwd_wide_kernel<"),
             False),
-    "vit": ("vit_cuda", "viterbi", ("vit_kernel<", "vit_wide_kernel<"),
+    "vit": ("vit_cuda", "viterbi", ("vit_kernel<",),
             True),
 }
 #: routing of chip_smoke.FORCED: every bias survivor takes the device
