@@ -89,18 +89,19 @@ ROWS_SCORE_TOL = 2e-3
 #: MSV 4 (HMMER's max with B, add bias, subtract cost, max into E) plus
 #: the bias filter's 10 float operations per (profile, residue); Forward
 #: 16 (M 8, I 4, D 3, E 1) at the FMA rate; rows 40 (Forward and Backward
-#: parsers and the decode).  Viterbi, max-plus, has no FMA: per cell 10
-#: FADD (M 5, I 3, D 2) and 10 FMNMX (M 4, I 2, D 2, E 2), at the issue
-#: rates of compute capability 9.0 in the CUDA C++ Programming Guide's
-#: arithmetic-throughput table: 128 f32 adds and 64 minimum/maximum
-#: results a clock per SM, x 132 SMs x 1.98 GHz
+#: parsers and the decode).  Viterbi, max-plus, has no FMA: per cell the
+#: function needs 10 FADD (M 5, I 3, D 2) and 6 FMNMX (M 3 over its four
+#: predecessors, I 1, D 1, E 1), at the issue rates of compute capability
+#: 9.0 in the CUDA C++ Programming Guide's arithmetic-throughput table:
+#: 128 f32 adds and 64 minimum/maximum results a clock per SM, x 132 SMs
+#: x 1.98 GHz
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
 INT16X2_RATE = 2 * 132 * 64 * 1.98e9
 FADD_RATE = 132 * 128 * 1.98e9
 FMNMX_RATE = 132 * 64 * 1.98e9
 MSV_OPS, BIAS_FLOPS, FILTER_FLOPS, ROWS_FLOPS = 4, 10, 16, 40
-VIT_FADD, VIT_FMNMX = 10, 10
+VIT_FADD, VIT_FMNMX = 10, 6
 
 
 def vit_ops_s(cells):
@@ -394,8 +395,8 @@ def phase_parity(queries, targets):
             # the main path's launches with the engine's host-built pair
             # list, the others with the wrapper's own
             args = (dev.codes, dev.lens, dev.lm,
-                    *(getattr(pb, t) for t in tabs), cols, need, pairs)
-            k = fn(*args)
+                    *(getattr(pb, t) for t in tabs), cols, need)
+            k = fn(*args, pairs)
             p = plain(*args)
             torch.cuda.synchronize()
             live = (k > NEG_LIVE) & (p > NEG_LIVE)
@@ -406,8 +407,8 @@ def phase_parity(queries, targets):
             err = (k - p)[live].abs().max().item() if live.any() else 0.0
             if err > tol:
                 fail(f"{name}: kernel vs plain {err} > {tol} nats")
-            ms, plain_ms = in_turns(lambda: fn(*args), lambda: plain(*args),
-                                    reps_k, reps_p)
+            ms, plain_ms = in_turns(lambda: fn(*args, pairs),
+                                    lambda: plain(*args), reps_k, reps_p)
             tpu = route if route.startswith("batch") else (
                 "_fwd" + route if name == "fwd" else "_vit_pallas")
             lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[
@@ -420,7 +421,8 @@ def phase_parity(queries, targets):
                 tpu=tpu,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
                 **bound(vit_ops_s(cells) if name == "vit"
-                        else FILTER_FLOPS * cells / F32_RATE, args, (k,))))
+                        else FILTER_FLOPS * cells / F32_RATE, (*args, pairs),
+                        (k,))))
             say("parity", kernel=name, **results[name][-1],
                 bar=f"|kernel - plain| <= {tol} nats on live pairs")
 

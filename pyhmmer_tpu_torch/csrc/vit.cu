@@ -378,7 +378,9 @@ static int block_capacity() {
 // lane, the block route from 32; at 16 and 24 the block route while the
 // launch's pairs all fit on the card at once, one warp a pair beyond
 // that (there the card is full either way, and the block route's
-// barriers and shared-memory traffic cost more than they save)
+// barriers and shared-memory traffic cost more than they save).  The
+// routes add the D->D sums in another order, so at 16 and 24 slots a
+// lane a pair's score may move by a few ulps with the launch's size.
 template <int S>
 static int launch_vit(const void* codes, int Lmax, const void* lens,
                       const void* lm, const void* emis, const void* trans,

@@ -31,19 +31,26 @@ def check_tensors(want: dict, table=None) -> None:
         raise ValueError(f"unsupported table shape {tuple(table.shape)}")
 
 
-def check_packed(codes, lens, lm, emis, trans, rows, need, pairs=None):
+def check_packed(codes, lens, lm, emis, trans, rows, need, wide_s: int,
+                 pairs=None):
     """Raise on what the Forward and Viterbi kernels do not take:
     ``emis`` [P, Kp, S, 32, 2] and ``trans`` [P, S, 2, 32, 4] for a
-    compiled stripe width ``S``, or in the wide layout ``emis`` [P, Kp,
-    2, S, 32] and ``trans`` [P, 8, S, 32] (``ops/batch.py``; the kernels
-    take the wide one from ``FWD_WIDE_S`` or ``VIT_WIDE_S`` on);
-    ``pairs``, if given, an int32 [3, npairs] list (:func:`host_pairs`)."""
+    compiled stripe width ``S`` below ``wide_s`` (the kernel's
+    ``FWD_WIDE_S`` or ``VIT_WIDE_S``), from ``wide_s`` on the wide layout
+    ``emis`` [P, Kp, 2, S, 32] and ``trans`` [P, 8, S, 32]
+    (``ops/batch.py``: the kernel picks the layout from ``S``, so a table
+    in the other one would be misread); ``pairs``, if given, an int32
+    [3, npairs] list (:func:`host_pairs`)."""
     B, _ = codes.shape
     P, Kp = emis.shape[:2]
     S = packed_stripes(trans)
-    wide = trans.dim() == 4
     if S not in STRIPES or Kp > 32 or trans.dim() not in (4, 5):
         raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
+    wide = S >= wide_s
+    if (trans.dim() == 4) != wide:
+        raise ValueError(
+            f"tables at {S} slots a lane must take the "
+            f"{'wide' if wide else 'packed'} layout (wide from {wide_s})")
     n = rows.shape[0]
     want = {"codes": (codes, torch.uint8, None),
             "lens": (lens, torch.int32, (B,)),

@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from . import _build, _pairs
-from .batch import NEGMASS, ProfileBatch, SeqDevice, packed_stripes, unpacked
+from .batch import (FWD_WIDE_S, NEGMASS, ProfileBatch, SeqDevice,
+                    packed_stripes, unpacked)
 
 #: kernel launches made by :func:`fwd_scores` (reset by the caller)
 launches = 0
@@ -39,7 +40,8 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
     ``pairs`` None or the int32 [3, npairs] list of ``need``
     (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
-    _pairs.check_packed(codes, lens, lm, emis, trans, rows, need, pairs)
+    _pairs.check_packed(codes, lens, lm, emis, trans, rows, need,
+                        FWD_WIDE_S, pairs)
     if codes.device.type == "cpu":
         return fwd_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":
@@ -58,10 +60,10 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     return out
 
 
-def fwd_plain(codes, lens, lm, emis, trans, rows, need, pairs=None):
+def fwd_plain(codes, lens, lm, emis, trans, rows, need):
     """The Forward scan of ``csrc/fwd.cu`` in plain PyTorch, batched over
     [P, n, Mk] with a loop over sequence rows; the D->D chain is a
-    Hillis-Steele scan of affine maps (``pairs`` is not needed)."""
+    Hillis-Steele scan of affine maps."""
     dev = codes.device
     ems, eis, tr = unpacked(emis, trans)
     P, Kp, Mk = ems.shape

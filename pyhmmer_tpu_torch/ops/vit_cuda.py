@@ -16,7 +16,8 @@ import math
 import torch
 
 from . import _build, _pairs
-from .batch import NEGMASS, ProfileBatch, SeqDevice, packed_stripes, unpacked
+from .batch import (NEGMASS, VIT_WIDE_S, ProfileBatch, SeqDevice,
+                    packed_stripes, unpacked)
 
 #: kernel launches made by :func:`vit_scores` (reset by the caller)
 launches = 0
@@ -24,11 +25,11 @@ launches = 0
 LOG_HALF = math.log(0.5)
 
 #: the kernel's code paths (``csrc/vit.cu:launch_vit``): one warp a pair,
-#: or several; ``auto`` picks by the model width and the launch's size,
-#: the others force one (a launch raises where it does not compile)
+#: or several; ``auto``, what :func:`vit_scores` takes, picks by the model
+#: width and, at 16 and 24 slots a lane, by whether the launch's pairs fit
+#: the card at once, so there a pair's score may move by a few ulps with
+#: the launch's size (the routes add the D->D sums in another order)
 ROUTES = {"auto": 0, "warp": 1, "block": 2}
-#: the path :func:`vit_scores` asks for
-route = "auto"
 
 
 def viterbi(pb: ProfileBatch, seq: SeqDevice, rows, need, pairs=None):
@@ -48,7 +49,14 @@ def vit_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
     ``pairs`` None or the int32 [3, npairs] list of ``need``
     (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
-    _pairs.check_packed(codes, lens, lm, emis, trans, rows, need, pairs)
+    return _scores(codes, lens, lm, emis, trans, rows, need, pairs, "auto")
+
+
+def _scores(codes, lens, lm, emis, trans, rows, need, pairs, route: str):
+    """:func:`vit_scores` on the kernel's code path ``route``
+    (:data:`ROUTES`; a path that does not compile at the width raises)."""
+    _pairs.check_packed(codes, lens, lm, emis, trans, rows, need,
+                        VIT_WIDE_S, pairs)
     if codes.device.type == "cpu":
         return vit_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":
@@ -67,10 +75,10 @@ def vit_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     return out
 
 
-def vit_plain(codes, lens, lm, emis, trans, rows, need, pairs=None):
+def vit_plain(codes, lens, lm, emis, trans, rows, need):
     """The Viterbi scan of ``csrc/vit.cu`` in plain PyTorch, batched over
     [P, n, Mk] with a loop over sequence rows; the D->D chain is a
-    Hillis-Steele (max, +) scan (``pairs`` is not needed)."""
+    Hillis-Steele (max, +) scan."""
     dev = codes.device
     msc, isc, tr = unpacked(emis, trans)
     P, Kp, Mk = msc.shape

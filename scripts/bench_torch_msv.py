@@ -20,9 +20,11 @@ kernel name over one more launch.
 
 ``--kernel fwd`` times ``fwd_cuda.forward`` (the wrapper with its pair
 list, as the engine calls it) instead: first at the launches the main
-path really makes -- the worker wraps ``fwd_cuda.forward`` from outside
-the package for one warm smoke search (``SearchEngine.search``, rows
-off) and records every argument set it was called with -- then at the
+path really makes -- ``chip_smoke.main_path_launches`` (this tree's
+``chip_smoke.py``, over the checkout's package) wraps
+``fwd_cuda.forward`` from outside the package for one smoke search
+(``SearchEngine.search``, rows off) and records every argument set it
+was called with -- then at the
 Forward parity shapes of ``chip_smoke.py`` (the same chunks, buckets and
 seeded need masks, and the widest chunk against every lane of the
 longest bucket).  Per launch it reports the pairs, P, Mk, Lmax, the DP
@@ -31,18 +33,21 @@ bound (``chip_smoke.bound``'s rule, with this tree's operation counts),
 the device time of the Forward kernels alone (kernel-only) and of every
 kernel of the call (``torch.profiler`` over five more calls), and the
 scores (so runs of two checkouts can be compared); then the wall time
-and ``s2_fetched`` stage mark of three more smoke searches, and their
-peak device memory (allocated blocks and requested bytes).
+and ``s2_fetched`` stage mark of three more smoke searches.  Before all
+that, each run takes the peak device memory of three
+``hmmsearch(device="cuda")`` calls as ``chip_smoke.py`` phase 3 does, in
+allocator blocks and requested bytes, per pool of the caching allocator
+(:func:`search_memory`).
 
 ``--kernel vit`` does the same for ``vit_cuda.viterbi``, at the launches
-of one smoke search and of one with the cascade forced (``FORCED``, as
-``chip_smoke.py`` forces it: the launches a Pfam-scale search would
-send), then at the parity shapes and at every chunk width of the smoke
+of one smoke search and of one with the cascade forced
+(``chip_smoke.FORCED``: the launches a Pfam-scale search would send),
+then at the parity shapes and at every chunk width of the smoke
 search against the 512 bucket (25% and 2% of every 8th lane); where the
-checkout's wrapper has
-routes (``vit_cuda.ROUTES``) it also times the kernel-only time of each
-route that compiles at the launch's width, and the route's largest
-score difference from the default's; ``s3_fetched`` is the stage mark.
+checkout's wrapper has routes (``vit_cuda.ROUTES``, launched through
+``vit_cuda._scores``) it also times the kernel-only time of each route
+that compiles at the launch's width, and the route's largest score
+difference from the default's; ``s3_fetched`` is the stage mark.
 Each run also reports the ``-Xptxas -v`` registers and spills of the
 kernel's instances.  The last line summarises, per launch, each run's
 kernel-only and call ms.
@@ -52,6 +57,7 @@ every run goes to ``--out``.
 """
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -87,12 +93,44 @@ FILTERS = {
     "vit": ("vit_cuda", "viterbi", ("vit_kernel<",),
             True),
 }
-#: routing of chip_smoke.FORCED: every bias survivor takes the device
-#: cascade
-FORCED = {"SPECULATE_P1B": -1.0, "HOST_MIN_PAIRS": 0,
-          "HOST_PAIRS_PER_ROW": 0.0}
 #: calls a launch is profiled over
 PROFILED = 5
+#: this tree's root: its ``chip_smoke.py`` captures the launches and
+#: builds the parity shapes for every checkout
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def smoke_module():
+    """This tree's ``chip_smoke`` (the checkout's own may predate the
+    helpers used here); it imports the package first on ``sys.path``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def search_memory(queries, targets):
+    """Peak device memory of three ``hmmsearch(device="cuda")`` calls
+    after a warm one, as ``chip_smoke.py`` phase 3 takes it (each call
+    builds its engine and tables anew), in allocator blocks and in
+    requested bytes, over both pools of the caching allocator (requests
+    up to 1 MiB share 2 MiB segments and are split to 512 bytes; larger
+    ones keep a cached block whole when splitting it would leave 1 MiB
+    or less, so their blocks can exceed what they asked for)."""
+    import torch
+    from pyhmmer_tpu_torch import hmmsearch
+    list(hmmsearch(queries, targets, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        list(hmmsearch(queries, targets, device="cuda"))
+        torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    return {f"{kind}_{pool}": stats.get(f"{kind}_bytes.{pool}.peak")
+            for kind in ("allocated", "requested")
+            for pool in ("all", "small_pool", "large_pool")}
 
 
 def worker_filter(root, kernel):
@@ -104,40 +142,22 @@ def worker_filter(root, kernel):
     import numpy as np
     import torch
 
-    import chip_smoke as C
     from pyhmmer_tpu_torch import _synthetic as syn
     from pyhmmer_tpu_torch import engine as E
     from pyhmmer_tpu_torch.ops import _build
 
+    C = smoke_module()
     modname, fn, names, forced = FILTERS[kernel]
     mod = importlib.import_module(f"pyhmmer_tpu_torch.ops.{modname}")
     queries, _, targets, _ = syn.smoke_workload()
+    memory = search_memory(queries, targets)
     eng = E.SearchEngine(queries[0].alphabet, device="cuda")
     eng.search(queries, targets)
-
-    def capture(force):
-        calls = []
-        real = getattr(mod, fn)
-        saved = {k: getattr(E, k) for k in FORCED}
-
-        def spy(*args):
-            calls.append(args)
-            return real(*args)
-        setattr(mod, fn, spy)
-        if force:
-            for k, v in FORCED.items():
-                setattr(E, k, v)
-        try:
-            E.SearchEngine(queries[0].alphabet, device="cuda").search(
-                queries, targets)
-        finally:
-            setattr(mod, fn, real)
-            for k, v in saved.items():
-                setattr(E, k, v)
-        return calls
-    captured = [("main", c) for c in capture(False)]
+    captured = [("main", c) for c in C.main_path_launches(
+        mod, fn, queries, targets)]
     if forced:
-        captured += [("forced", c) for c in capture(True)]
+        captured += [("forced", c) for c in C.main_path_launches(
+            mod, fn, queries, targets, forced=True)]
 
     # the parity shapes of chip_smoke.phase_parity, same seeded masks
     coalesced = E.group_queries(queries)
@@ -188,10 +208,12 @@ def worker_filter(root, kernel):
                 / max(1, sum(n for _, n in mine)),
                 sum(us for _, us, _ in events) / 1e3 / PROFILED)
 
-    routes = list(getattr(mod, "ROUTES", {}))[1:]
-    out = {"root": root, "launches": [], "ptxas": {
-        k: v for k, v in C.ptxas_summary(_build.ptxas_report()).items()
-        if any(k.startswith(n) for n in names)}}
+    # the kernel's code paths, where the checkout's wrapper has them
+    routes = (list(mod.ROUTES)[1:] if hasattr(mod, "_scores") else [])
+    out = {"root": root, "search_memory": memory, "launches": [],
+           "ptxas": {k: v for k, v in C.ptxas_summary(
+               _build.ptxas_report()).items()
+               if any(k.startswith(n) for n in names)}}
     for kind, args in captured:
         pb, dev, rows, need = args[:4]
         call = lambda: getattr(mod, fn)(*args)  # noqa: E731
@@ -201,15 +223,16 @@ def worker_filter(root, kernel):
         scores = call()
         route_ms = {}
         for route in routes:
-            mod.route = route
+            on_route = functools.partial(
+                mod._scores, dev.codes, dev.lens, dev.lm, pb.vit_emis,
+                pb.vit_trans, rows, need, args[4] if len(args) > 4 else None,
+                route)
             try:
-                route_ms[route] = kernel_ms(call)[0]
-                err = (call() - scores)[need].abs().max().item()
+                route_ms[route] = kernel_ms(on_route)[0]
+                err = (on_route() - scores)[need].abs().max().item()
                 route_ms[route + "_max_abs_diff"] = err
             except RuntimeError:
                 pass                     # not compiled at this width
-            finally:
-                mod.route = "auto"
         lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[rows.cpu()]
         M = torch.as_tensor(pb.M, dtype=torch.float64)
         cells = float((M[:, None] * lens[None, :])[need.cpu()].sum())
@@ -225,7 +248,6 @@ def worker_filter(root, kernel):
             route_kernel_ms=route_ms, scores=scores[need].cpu().tolist()))
     out["stage_fetched_s"], out["wall_s"] = [], []
     mark = {"fwd": "s2_fetched", "vit": "s3_fetched"}[kernel]
-    torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         torch.cuda.synchronize()
         t = time.time()
@@ -233,11 +255,6 @@ def worker_filter(root, kernel):
         torch.cuda.synchronize()
         out["wall_s"].append(time.time() - t)
         out["stage_fetched_s"].append(eng.last_timing[mark])
-    # peak device memory of the three searches, as the allocator counts
-    # it (blocks) and as the tensors asked for it
-    stats = torch.cuda.memory_stats()
-    out["peak_allocated"] = torch.cuda.max_memory_allocated()
-    out["peak_requested"] = stats.get("requested_bytes.all.peak")
     for kind in ("main", "forced"):
         out[f"{kind}_ms_total"] = float(np.sum(
             [r["ms"] for r in out["launches"] if r["kind"] == kind]))
@@ -314,9 +331,8 @@ def add_bounds(runs, kernel):
     """Each launch's bound (``chip_smoke.bound``'s rule with this tree's
     operation counts): Forward 16 float operations a cell at the FMA
     rate, Viterbi ``chip_smoke.vit_ops_s``."""
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke as C
+    sys.path.insert(0, HERE)
+    C = smoke_module()
     for run in runs:
         for r in run["launches"]:
             ops_s = (C.vit_ops_s(r["cells"]) if kernel == "vit"

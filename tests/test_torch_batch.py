@@ -12,6 +12,7 @@ from pyhmmer_tpu.plan7.background import Background as JBackground
 from pyhmmer_tpu.plan7.profile import Profile as JProfile
 from pyhmmer_tpu_torch import _synthetic as syn
 from pyhmmer_tpu_torch.ops import batch as TB
+from pyhmmer_tpu_torch.ops import fwd_cuda, vit_cuda
 from pyhmmer_tpu_torch.plan7 import Background, Profile
 from test_torch_host import jax_hmm
 
@@ -176,6 +177,33 @@ def test_viterbi_tables_keep_their_bytes(stacks, Mp):
         assert torch.equal(TB.unstriped(tpb.vit_trans), tr)
     else:
         assert tpb.vit_trans.dim() == 5
+
+
+@pytest.mark.parametrize("kernel,S,wide_s", [
+    ("vit", 3, 1), ("vit", 16, 1000), ("fwd", 3, 1), ("fwd", 16, 1),
+    ("fwd", 32, 1000)])
+def test_wrappers_reject_the_other_layout(kernel, S, wide_s):
+    """The Forward and Viterbi kernels take the table layout from the
+    stripe width (wide from ``FWD_WIDE_S``, ``VIT_WIDE_S``): tables packed
+    at another threshold raise ``ValueError``, the same tables in the
+    kernel's own layout pass."""
+    fn, own = {"vit": (vit_cuda.vit_scores, TB.VIT_WIDE_S),
+               "fwd": (fwd_cuda.fwd_scores, TB.FWD_WIDE_S)}[kernel]
+    rng = np.random.default_rng(S)
+    P, Kp, Mk = 2, 29, 32 * S
+    em, ei = (rng.standard_normal((P, Kp, Mk)).astype(np.float32)
+              for _ in range(2))
+    tr = rng.standard_normal((P, 8, Mk)).astype(np.float32)
+    codes = torch.zeros((4, 8), dtype=torch.uint8)
+    lens = torch.full((4,), 8, dtype=torch.int32)
+    lm = torch.zeros((4, 4))
+    rows, need = torch.arange(4), torch.ones((P, 4), dtype=torch.bool)
+    emis, trans = (torch.from_numpy(a) for a in TB.packed(em, ei, tr,
+                                                          wide_s))
+    with pytest.raises(ValueError, match="layout"):
+        fn(codes, lens, lm, emis, trans, rows, need)
+    emis, trans = (torch.from_numpy(a) for a in TB.packed(em, ei, tr, own))
+    assert fn(codes, lens, lm, emis, trans, rows, need).shape == (P, 4)
 
 
 @pytest.mark.parametrize("x,m,want", [(0, 32, 0), (1, 32, 32), (32, 32, 32),

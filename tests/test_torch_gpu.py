@@ -237,19 +237,19 @@ def vit_routes(S):
                             ("block", S >= TB.VIT_WIDE_S)) if ok]
 
 
-def assert_vit_routes_match_plain(pb, dev, rows, need, monkeypatch):
+def assert_vit_routes_match_plain(pb, dev, rows, need):
     """Every route of the Viterbi kernel at ``pb``'s width, and the
-    default, against ``vit_plain`` within ``VIT_TOL``; pairs outside
-    ``need`` keep NEGMASS."""
+    default (``vit_scores``), against ``vit_plain`` within ``VIT_TOL``;
+    pairs outside ``need`` keep NEGMASS."""
     args = (dev.codes, dev.lens, dev.lm, pb.vit_emis, pb.vit_trans, rows,
             need)
     p = vit_cuda.vit_plain(*args)
     live = need & (p > -1e29)
     assert bool(live.any())
     for route in ["auto", *vit_routes(pb.S)]:
-        monkeypatch.setattr(vit_cuda, "route", route)
         before = vit_cuda.launches
-        k = vit_cuda.vit_scores(*args)
+        k = (vit_cuda.vit_scores(*args) if route == "auto"
+             else vit_cuda._scores(*args, None, route))
         assert vit_cuda.launches == before + 1
         torch.cuda.synchronize()
         assert (k[~need] == TB.NEGMASS).all(), route
@@ -263,7 +263,7 @@ def assert_vit_routes_match_plain(pb, dev, rows, need, monkeypatch):
                                    ((420, 500), 512), ((700, 760), 768)],
                          ids=["Mk32", "Mk64", "Mk96", "Mk192", "Mk256",
                               "Mk384", "Mk512", "Mk768"])
-def test_vit_routes_match_plain(cuda, Ms, Mp, monkeypatch):
+def test_vit_routes_match_plain(cuda, Ms, Mp):
     """The Viterbi kernel's code paths: one warp a pair with the
     transitions in registers (up to 8 slots a lane), with the next row's
     emissions loaded ahead (up to 16), and the block route (several warps
@@ -282,12 +282,12 @@ def test_vit_routes_match_plain(cuda, Ms, Mp, monkeypatch):
     gen = torch.Generator().manual_seed(Mp)
     rows = torch.randperm(61, generator=gen).to(cuda)
     need = (torch.rand((len(Ms), 61), generator=gen) < 0.6).to(cuda)
-    assert_vit_routes_match_plain(pb, dev, rows, need, monkeypatch)
+    assert_vit_routes_match_plain(pb, dev, rows, need)
 
 
 @pytest.mark.parametrize("Ms,Mp", [((40, 100, 170), 192), ((1000,), 1024)],
                          ids=["Mk192", "Mk1024"])
-def test_vit_long_bucket(cuda, Ms, Mp, monkeypatch):
+def test_vit_long_bucket(cuda, Ms, Mp):
     """A bucket of the 131072 ladder level, as the engine packs it: lanes
     of 9,000 and 35,000 background residues, the long one with a planted
     domain of each model, beside short lanes, on every route (at Mk1024
@@ -314,19 +314,20 @@ def test_vit_long_bucket(cuda, Ms, Mp, monkeypatch):
     rows = torch.arange(16, device=cuda)
     need = torch.ones((len(Ms), 16), dtype=torch.bool, device=cuda)
     need[0, 2] = False
-    assert_vit_routes_match_plain(pb, dev, rows, need, monkeypatch)
+    assert_vit_routes_match_plain(pb, dev, rows, need)
 
 
-def test_vit_route_not_compiled_raises(case, monkeypatch):
+def test_vit_route_not_compiled_raises(case):
     """A route that does not compile at the width raises; nothing falls
     back."""
-    S = case.pb.S
-    missing = [r for r in vit_cuda.ROUTES if r not in vit_routes(S) + ["auto"]]
-    dev = case.dev
+    pb, dev = case.pb, case.dev
+    missing = [r for r in vit_cuda.ROUTES
+               if r not in vit_routes(pb.S) + ["auto"]]
     for route in missing:
-        monkeypatch.setattr(vit_cuda, "route", route)
         with pytest.raises(RuntimeError, match="vit_launch"):
-            vit_cuda.viterbi(case.pb, dev, case.rows, case.need)
+            vit_cuda._scores(dev.codes, dev.lens, dev.lm, pb.vit_emis,
+                             pb.vit_trans, case.rows, case.need, None,
+                             route)
 
 
 def test_wrapper_rejects_mixed_devices(case):
