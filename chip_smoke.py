@@ -100,14 +100,33 @@ F32_RATE = 67e12
 INT16X2_RATE = 2 * 132 * 64 * 1.98e9
 FADD_RATE = 132 * 128 * 1.98e9
 FMNMX_RATE = 132 * 64 * 1.98e9
-MSV_OPS, BIAS_FLOPS, FILTER_FLOPS, ROWS_FLOPS = 4, 10, 16, 40
+MSV_OPS, BIAS_FLOPS, FILTER_FLOPS = 4, 10, 16
 VIT_FADD, VIT_FMNMX = 10, 6
+#: the survivor rows, counted from the two parsers' recurrences at the
+#: same issue rates (FMUL, FADD and FFMA issue alike, 128 a clock a SM):
+#: per cell the Forward parser needs 15 (M 5: four products summed by
+#: three FFMA, times the emission; I 3; D 2; E 2 FADD; the row's rescale
+#: of M, I and D 3 FMUL) and the Backward parser 12 (the emission product
+#: 1; B 1 FFMA; M 4 with the I cell's emission product; I 2; D 2; the
+#: rescale of M and I 2) f32 instructions and 1 FMNMX (the row's max);
+#: per row of a pair 5 MUFU (the log of each pass's scale, the three exp
+#: of the decode terms) at 16 a clock a SM.  (PR 2 counted 40 float
+#: operations a cell at the FMA rate of 67e12, a bound 1.45x lower.)
+MUFU_RATE = 132 * 16 * 1.98e9
+ROWS_F32, ROWS_FMNMX, ROWS_MUFU = 27, 1, 5
 
 
 def vit_ops_s(cells):
     """Seconds the Viterbi recurrence's operations take on ``cells`` DP
     cells at the card's issue rates."""
     return cells * (VIT_FADD / FADD_RATE + VIT_FMNMX / FMNMX_RATE)
+
+
+def rows_ops_s(cells, residues):
+    """Seconds the survivor rows' operations take on ``cells`` DP cells
+    (the sum of M x L over the pairs) and ``residues`` (the sum of L)."""
+    return (cells * (ROWS_F32 / FADD_RATE + ROWS_FMNMX / FMNMX_RATE)
+            + residues * ROWS_MUFU / MUFU_RATE)
 
 
 KERNELS = {
@@ -268,11 +287,13 @@ def chunk_batch(queries, qidx, Mp):
     return B.ProfileBatch(profs, Mp=Mp).to("cuda")
 
 
-def main_path_launches(mod, fn, queries, targets, forced=False):
-    """The arguments (profile batch, bucket, rows, need, pairs) of every
-    call of ``mod.fn`` (``fwd_cuda.forward``, ``vit_cuda.viterbi``) in one
-    smoke search (rows off; ``forced``: with the cascade forced), in
-    order."""
+def main_path_launches(mod, fn, queries, targets, forced=False,
+                       device_rows=False):
+    """The arguments of every call of ``mod.fn`` in one smoke search
+    (``forced``: with the cascade forced; ``device_rows``: with the rows
+    stage on), in order: (profile batch, bucket, rows, need, pairs) for
+    ``fwd_cuda.forward`` and ``vit_cuda.viterbi``, (profile batch,
+    bucket, pair_p, pair_b) for ``rows_cuda.survivor_rows``."""
     calls = []
     real = getattr(mod, fn)
 
@@ -282,10 +303,10 @@ def main_path_launches(mod, fn, queries, targets, forced=False):
     setattr(mod, fn, spy)
     try:
         if forced:
-            forced_search(queries, targets, False)
+            forced_search(queries, targets, device_rows)
         else:
-            E.SearchEngine(queries[0].alphabet, device="cuda").search(
-                queries, targets)
+            E.SearchEngine(queries[0].alphabet, device="cuda",
+                           device_rows=device_rows).search(queries, targets)
     finally:
         setattr(mod, fn, real)
     return calls
@@ -426,29 +447,59 @@ def phase_parity(queries, targets):
             say("parity", kernel=name, **results[name][-1],
                 bar=f"|kernel - plain| <= {tol} nats on live pairs")
 
-    # survivor rows: the most populous chunk x the 512 bucket, and the
-    # chunk with 384 < Mp <= 768 x the 2048 bucket
-    results["rows"] = [rows_parity(pbs[big], devs[512], 256, gen),
-                       rows_parity(pbs[mid], devs[2048], 64, gen)]
+    # survivor rows: the most populous chunk x the 512 bucket and the
+    # chunk with 384 < Mp <= 768 x the 2048 bucket; then every launch of
+    # the main path (rows on) and the forced cascade's launch with the
+    # most pairs, replayed with the engine's pairs
+    results["rows"] = [
+        rows_parity(pbs[big], devs[512], *rows_pairs(pbs[big], devs[512],
+                                                     256, gen), ""),
+        rows_parity(pbs[mid], devs[2048], *rows_pairs(pbs[mid], devs[2048],
+                                                      64, gen), "")]
+    launches = main_path_launches(rows_cuda, "survivor_rows", queries,
+                                  targets, device_rows=True)
+    if not launches:
+        fail("no rows launch in the smoke search with the rows stage on")
+    for i, (pb, dev, pair_p, pair_b) in enumerate(launches):
+        results["rows"].append(rows_parity(
+            pb, dev, pair_p, pair_b,
+            f"main-path launch {i + 1} of {len(launches)}: "))
+    launches = main_path_launches(rows_cuda, "survivor_rows", queries,
+                                  targets, forced=True, device_rows=True)
+    pb, dev, pair_p, pair_b = max(launches, key=lambda c: len(c[2]))
+    results["rows"].append(rows_parity(
+        pb, dev, pair_p, pair_b,
+        f"forced-cascade launch (most pairs of {len(launches)}): "))
     return results
 
 
-def rows_parity(pb, dev, npairs, gen):
-    """The rows kernel against ``rows_plain`` on ``npairs`` pairs of
-    ``pb`` x ``dev``, sorted by profile as the engine launches them: the
+def rows_pairs(pb, dev, npairs, gen):
+    """``npairs`` pairs (pair_p, pair_b; numpy) of ``pb`` x ``dev``: the
     four with the highest Forward scores (planted domains, real domain
-    mass) and random ones.  Timed in turns: 10 kernel launches, the plain
-    version once (it loops over every row in Python), 10 launches."""
+    mass) and random ones."""
     everything = fwd_cuda.forward(
         pb, dev, torch.arange(dev.B, device="cuda"),
         torch.ones((pb.P, dev.B), dtype=torch.bool, device="cuda"))
     top = torch.topk(everything.flatten(), 4).indices.cpu()
-    flat = torch.sort(torch.cat([top, torch.randint(
-        0, pb.P * dev.B, (npairs - 4,), generator=gen)])).values
-    pair_p = (flat // dev.B).to(torch.int32).cuda()
-    pair_row = (flat % dev.B).to(torch.int32).cuda()
-    args = (dev.codes, dev.lens, dev.lm, pb.fwd_ems, pb.fwd_eis, pb.fwd_tr,
-            pair_p, pair_row)
+    flat = torch.cat([top, torch.randint(0, pb.P * dev.B, (npairs - 4,),
+                                         generator=gen)])
+    return ((flat // dev.B).numpy().astype(np.int32),
+            (flat % dev.B).numpy().astype(np.int32))
+
+
+def rows_parity(pb, dev, pair_p, pair_b, label):
+    """The rows kernels against ``rows_plain`` on the pairs (``pair_p``,
+    ``pair_b``) of ``pb`` x ``dev``, sorted by profile as
+    ``rows_cuda.survivor_rows`` launches them.  Timed in turns: 10 kernel
+    launches, the plain version once (it loops over every row in
+    Python), 10 launches."""
+    order = np.argsort(pair_p, kind="stable")
+    pair_p = torch.as_tensor(np.asarray(pair_p)[order], dtype=torch.int32,
+                             device="cuda")
+    pair_row = torch.as_tensor(np.asarray(pair_b)[order], dtype=torch.int32,
+                               device="cuda")
+    args = (dev.codes, dev.lens, dev.lm, pb.fwd_emis, pb.fwd_trans, pair_p,
+            pair_row)
     k = rows_cuda.rows_scores(*args)
     # in turns: kernel, plain, kernel
     ms = cuda_ms(lambda: rows_cuda.rows_scores(*args), 10)
@@ -456,7 +507,9 @@ def rows_parity(pb, dev, npairs, gen):
     ms = (ms + cuda_ms(lambda: rows_cuda.rows_scores(*args), 10)) / 2
     (kt, kf, kb), (pt, pf, pbk) = ([x.cpu().numpy() for x in r]
                                    for r in (k, p))
-    shape = f"P{pb.P} x {npairs} pairs x L{dev.Lmax} x Mk{32 * pb.S}"
+    npairs = len(order)
+    shape = (f"{label}P{pb.P} x {npairs} pairs x L{dev.Lmax} x "
+             f"Mk{32 * pb.S}")
     if not (np.isfinite(kt).all() and np.isfinite(kf).all()
             and np.isfinite(kb).all()):
         fail(f"rows: non-finite kernel output ({shape})")
@@ -465,7 +518,8 @@ def rows_parity(pb, dev, npairs, gen):
         fail(f"rows: fsc/bsc kernel vs plain {sc_err} > {ROWS_SC} nats "
              f"({shape})")
     row_err = 0.0
-    for g, b in enumerate(pair_row.cpu().numpy()):
+    rows_of = pair_row.cpu().numpy()
+    for g, b in enumerate(rows_of):
         L = int(dev.lengths[b])
         got = rows_cuda.ext_rows(kt[g], L)
         want = rows_cuda.ext_rows(pt[g], L)
@@ -475,11 +529,14 @@ def rows_parity(pb, dev, npairs, gen):
         if (kt[g, L + 1:] != 0).any():
             fail(f"rows: terms past the length of pair {g} ({shape})")
         row_err = max(row_err, float(np.abs(got - want).max()))
-    cells = float(sum(float(pb.M[pp]) * float(dev.lengths[b]) for pp, b in
-                      zip(pair_p.cpu().numpy(), pair_row.cpu().numpy())))
+    lens = dev.lengths[rows_of].astype(np.float64)
+    cells = float((pb.M[pair_p.cpu().numpy()].astype(np.float64)
+                   * lens).sum())
     rec = dict(shape=shape, tpu="_survivor_rows_impl", max_abs_err=sc_err,
                rows_max_abs_err=row_err, ms=ms, plain_ms=plain_ms,
-               cells=cells, **bound(ROWS_FLOPS * cells / F32_RATE, args, k),
+               cells=cells, residues=float(lens.sum()),
+               lengths=[int(x) for x in lens],
+               **bound(rows_ops_s(cells, lens.sum()), args, k),
                best_fsc=float(kf.max()),
                audit_fails=int((np.abs(kf - kb)
                                 >= 2e-2 + 1e-4 * np.abs(kf)).sum()))

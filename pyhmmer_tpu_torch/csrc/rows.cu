@@ -29,8 +29,11 @@
 //
 // Design: as fwd.cu -- one warp per pair, running to that pair's own
 // length; lane l owns model slots l*S .. l*S+S-1 in registers; emission
-// and transition odds are read by residue code from the striped tables of
-// ops/batch.py.  The backward M->M, I->M and D->M terms into slot s come
+// and transition odds are read by residue code from the packed tables of
+// the Forward filter kernel (ops/batch.py: fwd_emis, fwd_trans; S <= 24,
+// so always the narrow layout): one slot's (M, I) emission odds in one
+// float2 load, its eight transition odds in two float4 loads, the
+// transitions held in registers up to 8 slots a lane.  The backward M->M, I->M and D->M terms into slot s come
 // from slot s+1, so each lane multiplies its own slots' values by the
 // forward tables' transitions at the same slot (tr 0-2 of slot s+1 are
 // the transitions out of state s+1) and passes the products one slot
@@ -54,13 +57,47 @@ constexpr float TINY = 1e-30f;
 enum { F_B, F_E, F_J, F_C, F_RS, NF };  // forward row planes
 constexpr int NT = 3;                     // term_b, term_e, term_w
 
+// One lane's view of a profile's packed odds tables: slot j's
+// transitions ta(j) = (tMM, tIM, tDM, tBM) and tb(j) = (tMI, tII, tMD,
+// tDD), in registers up to 8 slots a lane, and its (M, I) emission odds
+// of residue x, em(x, j).
+template <int S>
+struct Tables {
+  static constexpr bool TR_REGS = S <= 8;
+  const float4* tr;
+  const float2* em_;
+  float4 ra[TR_REGS ? S : 1], rb[TR_REGS ? S : 1];
+  __device__ Tables(const float2* emis, const float4* trans, int p, int Kp,
+                    int lane)
+      : tr(trans + (size_t)p * S * 64 + lane),
+        em_(emis + (size_t)p * Kp * S * 32 + lane) {
+    if constexpr (TR_REGS) {
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        ra[j] = __ldg(tr + 64 * j);
+        rb[j] = __ldg(tr + 64 * j + 32);
+      }
+    }
+  }
+  __device__ float4 ta(int j) const {
+    if constexpr (TR_REGS) return ra[j];
+    else return __ldg(tr + 64 * j);
+  }
+  __device__ float4 tb(int j) const {
+    if constexpr (TR_REGS) return rb[j];
+    else return __ldg(tr + 64 * j + 32);
+  }
+  __device__ float2 em(int x, int j) const {
+    return __ldg(em_ + ((size_t)x * S + j) * 32);
+  }
+};
+
 template <int S>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
                 const int* __restrict__ lens, const float* __restrict__ lm,
-                const float* __restrict__ ems,  // [P, Kp, S, 32] odds
-                const float* __restrict__ eis,  // [P, Kp, S, 32] odds
-                const float* __restrict__ tr,   // [P, 8, S, 32] odds
+                const float2* __restrict__ emis,   // [P, Kp, S, 32] (M, I)
+                const float4* __restrict__ trans,  // [P, S, 2, 32] 8 a slot
                 const int* __restrict__ pair_p,
                 const int* __restrict__ pair_row, int npairs, int Kp,
                 float* __restrict__ frows,      // [G, NF, Lmax + 1]
@@ -72,12 +109,9 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
   const int L = lens[row];
   const float loop = lm[row * 4 + 0], move = lm[row * 4 + 1];
   const float log_move = lm[row * 4 + 3];
-  const float* T = tr + (size_t)p * 8 * S * 32 + lane;
-  const float* MS = ems + (size_t)p * Kp * S * 32 + lane;
-  const float* IS = eis + (size_t)p * Kp * S * 32 + lane;
+  const Tables<S> tab(emis, trans, p, Kp, lane);
   const size_t Lp1 = (size_t)Lmax + 1;
   float* fr = frows + (size_t)w * NF * Lp1;
-#define TR(t, j) __ldg(T + ((t) * S + (j)) * 32)
 
   // row 0: N = 1, B = move, E = J = C = 0, scale 0
   if (lane < NF) fr[lane * Lp1] = lane == F_B ? move : 0.f;
@@ -95,8 +129,6 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
     float sB = 0.f, sE = 0.f, sJ = 0.f, sC = 0.f, sR = 0.f;
     for (int r = 0; r < nr; ++r) {
       const int x = __shfl_sync(FULL_MASK, mycode, r);
-      const float* ms = MS + x * S * 32;
-      const float* is = IS + x * S * 32;
       float cm = __shfl_up_sync(FULL_MASK, m[S - 1], 1);
       float ci = __shfl_up_sync(FULL_MASK, iv[S - 1], 1);
       float cd = __shfl_up_sync(FULL_MASK, d[S - 1], 1);
@@ -106,11 +138,10 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
         const float pm = j ? m[j - 1] : cm;
         const float pi = j ? iv[j - 1] : ci;
         const float pd = j ? d[j - 1] : cd;
-        const float nm = __ldg(ms + j * 32) *
-                         (pm * TR(0, j) + pi * TR(1, j) + pd * TR(2, j) +
-                          xB * TR(3, j));
-        const float ni = __ldg(is + j * 32) * (m[j] * TR(4, j) +
-                                               iv[j] * TR(5, j));
+        const float4 a = tab.ta(j), b = tab.tb(j);
+        const float2 e = tab.em(x, j);
+        const float nm = e.x * (pm * a.x + pi * a.y + pd * a.z + xB * a.w);
+        const float ni = e.y * (m[j] * b.x + iv[j] * b.y);
         m[j] = nm;
         iv[j] = ni;
       }
@@ -118,8 +149,9 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
       float A = 1.f, Bv = 0.f;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
-        Bv = m[j] * TR(6, j) + Bv * TR(7, j);
-        A *= TR(7, j);
+        const float4 b = tab.tb(j);
+        Bv = m[j] * b.z + Bv * b.w;
+        A *= b.w;
       }
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
@@ -135,9 +167,10 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
       float es = 0.f;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
+        const float4 b = tab.tb(j);
         d[j] = dd;
         es += m[j] + dd;
-        dd = m[j] * TR(6, j) + dd * TR(7, j);
+        dd = m[j] * b.z + dd * b.w;
       }
       const float e = warp_sum_f(es);
       const float nj = xJ * loop + e * 0.5f;
@@ -174,7 +207,6 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
       fr[F_RS * Lp1 + q] = sR;
     }
   }
-#undef TR
   if (lane == 0) fsc[w] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
 }
 
@@ -182,8 +214,8 @@ template <int S>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
                 const int* __restrict__ lens, const float* __restrict__ lm,
-                const float* __restrict__ ems, const float* __restrict__ eis,
-                const float* __restrict__ tr,
+                const float2* __restrict__ emis,
+                const float4* __restrict__ trans,
                 const int* __restrict__ pair_p,
                 const int* __restrict__ pair_row, int npairs, int Kp,
                 const float* __restrict__ frows,  // [G, NF, Lmax + 1]
@@ -197,15 +229,12 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
   const int L = lens[row];
   const float loop = lm[row * 4 + 0], move = lm[row * 4 + 1];
   const float log_loop = lm[row * 4 + 2];
-  const float* T = tr + (size_t)p * 8 * S * 32 + lane;
-  const float* MS = ems + (size_t)p * Kp * S * 32 + lane;
-  const float* IS = eis + (size_t)p * Kp * S * 32 + lane;
+  const Tables<S> tab(emis, trans, p, Kp, lane);
   const size_t Lp1 = (size_t)Lmax + 1;
   const float* fr = frows + (size_t)w * NF * Lp1;
   float* tm = terms + (size_t)w * Lp1 * NT;
   const float fs = fsc[w];
   const bool live = fs > 0.5f * NEGMASS;
-#define TR(t, j) __ldg(T + ((t) * S + (j)) * 32)
 
   float m[S], iv[S];  // backward M and I rows (M turns into M * emission)
 #pragma unroll
@@ -234,13 +263,13 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
     for (int r = min(L, r0 + 31); r >= r0; --r) {
       // the state at row r from the state at row r + 1 (all zero at r = L)
       const int x = __shfl_sync(FULL_MASK, mycode, r - r0);
-      const float* ms = MS + x * S * 32;
-      const float* is = IS + x * S * 32;
+      float2 ec[S];
       float bp = 0.f;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
-        m[j] *= __ldg(ms + j * 32);
-        bp += m[j] * TR(3, j);
+        ec[j] = tab.em(x, j);
+        m[j] *= ec[j].x;
+        bp += m[j] * tab.ta(j).w;
       }
       const float B = warp_sum_f(bp);
       const float nj = xJ * loop + B * move;
@@ -249,18 +278,20 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
       const float ne = 0.5f * (nj + nc);
       // M->M, I->M and D->M terms of this lane's first slot, for the
       // previous lane's last slot
-      float e0 = __shfl_down_sync(FULL_MASK, m[0] * TR(0, 0), 1);
-      float e1 = __shfl_down_sync(FULL_MASK, m[0] * TR(1, 0), 1);
-      float e2 = __shfl_down_sync(FULL_MASK, m[0] * TR(2, 0), 1);
+      const float4 a0 = tab.ta(0);
+      float e0 = __shfl_down_sync(FULL_MASK, m[0] * a0.x, 1);
+      float e1 = __shfl_down_sync(FULL_MASK, m[0] * a0.y, 1);
+      float e2 = __shfl_down_sync(FULL_MASK, m[0] * a0.z, 1);
       if (lane == 31) e0 = e1 = e2 = 0.f;
       // reverse D chain, pass 1: this stripe's map from nd at the next
       // stripe's first slot to nd at this stripe's first slot
       float A = 1.f, Bv = 0.f;
 #pragma unroll
       for (int j = S - 1; j >= 0; --j) {
-        const float s2 = j == S - 1 ? e2 : m[j + 1] * TR(2, j + 1);
-        Bv = (ne + s2) + Bv * TR(7, j);
-        A *= TR(7, j);
+        const float s2 = j == S - 1 ? e2 : m[j + 1] * tab.ta(j + 1).z;
+        const float t7 = tab.tb(j).w;
+        Bv = (ne + s2) + Bv * t7;
+        A *= t7;
       }
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
@@ -284,14 +315,16 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
           s1 = e1;
           s2 = e2;
         } else {
-          s0 = un * TR(0, j + 1);
-          s1 = un * TR(1, j + 1);
-          s2 = un * TR(2, j + 1);
+          const float4 an = tab.ta(j + 1);
+          s0 = un * an.x;
+          s1 = un * an.y;
+          s2 = un * an.z;
         }
-        const float isv = __ldg(is + j * 32);
-        const float nm = ne + s0 + iv[j] * TR(4, j) * isv + dd * TR(6, j);
-        const float ni = s1 + iv[j] * TR(5, j) * isv;
-        dd = (ne + s2) + dd * TR(7, j);
+        const float4 b = tab.tb(j);
+        const float isv = ec[j].y;
+        const float nm = ne + s0 + iv[j] * b.x * isv + dd * b.z;
+        const float ni = s1 + iv[j] * b.y * isv;
+        dd = (ne + s2) + dd * b.w;
         un = m[j];
         m[j] = nm;
         iv[j] = ni;
@@ -328,36 +361,35 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
       t[2] = live ? tW : 0.f;
     }
   }
-#undef TR
   if (lane == 0) bsc[w] = xN > 0.f ? logf(xN) + lsc : NEGMASS;
 }
 
 template <int S>
 static int launch_rows(const void* codes, int Lmax, const void* lens,
-                       const void* lm, const void* ems, const void* eis,
-                       const void* tr, const void* pair_p,
+                       const void* lm, const void* emis, const void* trans,
+                       const void* pair_p,
                        const void* pair_row, int npairs, int Kp,
                        void* frows, void* fsc, void* terms, void* bsc,
                        cudaStream_t stream) {
   const int grid = (npairs + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   fwd_rows_kernel<S><<<grid, 32 * WARPS_PER_BLOCK, 0, stream>>>(
       (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
-      (const float*)ems, (const float*)eis, (const float*)tr,
+      (const float2*)emis, (const float4*)trans,
       (const int*)pair_p, (const int*)pair_row, npairs, Kp, (float*)frows,
       (float*)fsc);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bck_rows_kernel<S><<<grid, 32 * WARPS_PER_BLOCK, 0, stream>>>(
       (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
-      (const float*)ems, (const float*)eis, (const float*)tr,
+      (const float2*)emis, (const float4*)trans,
       (const int*)pair_p, (const int*)pair_row, npairs, Kp,
       (const float*)frows, (const float*)fsc, (float*)terms, (float*)bsc);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rows_launch(const void* codes, int Lmax, const void* lens,
-                           const void* lm, const void* ems, const void* eis,
-                           const void* tr, const void* pair_p,
+                           const void* lm, const void* emis,
+                           const void* trans, const void* pair_p,
                            const void* pair_row, int npairs, int Kp, int S,
                            void* frows, void* fsc, void* terms, void* bsc,
                            void* stream) {
@@ -365,7 +397,7 @@ extern "C" int rows_launch(const void* codes, int Lmax, const void* lens,
   switch (S) {
 #define PYHMMER_CASE(s)                                                    \
   case s:                                                                  \
-    return launch_rows<s>(codes, Lmax, lens, lm, ems, eis, tr, pair_p,     \
+    return launch_rows<s>(codes, Lmax, lens, lm, emis, trans, pair_p,      \
                           pair_row, npairs, Kp, frows, fsc, terms, bsc,    \
                           (cudaStream_t)stream);
     PYHMMER_ROWS_STRIPES(PYHMMER_CASE)

@@ -55,9 +55,9 @@ SIGNATURES = {
     # npairs, Kp, S, out, stream
     "fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P],
-    # codes, Lmax, lens, lm, ems, eis, tr, pair_p, pair_row, npairs, Kp,
+    # codes, Lmax, lens, lm, emis, trans, pair_p, pair_row, npairs, Kp,
     # S, frows, fsc, terms, bsc, stream
-    "rows_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    "rows_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _P, _P, _P, _P, _P],
 }
 

@@ -31,16 +31,16 @@ def check_tensors(want: dict, table=None) -> None:
         raise ValueError(f"unsupported table shape {tuple(table.shape)}")
 
 
-def check_packed(codes, lens, lm, emis, trans, rows, need, wide_s: int,
-                 pairs=None):
-    """Raise on what the Forward and Viterbi kernels do not take:
-    ``emis`` [P, Kp, S, 32, 2] and ``trans`` [P, S, 2, 32, 4] for a
-    compiled stripe width ``S`` below ``wide_s`` (the kernel's
+def check_packed(codes, lens, lm, emis, trans, wide_s: int,
+                 more: dict) -> None:
+    """Raise on what the Forward, Viterbi and survivor-rows kernels do
+    not take: ``emis`` [P, Kp, S, 32, 2] and ``trans`` [P, S, 2, 32, 4]
+    for a compiled stripe width ``S`` below ``wide_s`` (the kernel's
     ``FWD_WIDE_S`` or ``VIT_WIDE_S``), from ``wide_s`` on the wide layout
     ``emis`` [P, Kp, 2, S, 32] and ``trans`` [P, 8, S, 32]
     (``ops/batch.py``: the kernel picks the layout from ``S``, so a table
-    in the other one would be misread); ``pairs``, if given, an int32
-    [3, npairs] list (:func:`host_pairs`)."""
+    in the other one would be misread); ``more``, the caller's other
+    arguments as :func:`check_tensors` takes them."""
     B, _ = codes.shape
     P, Kp = emis.shape[:2]
     S = packed_stripes(trans)
@@ -51,19 +51,27 @@ def check_packed(codes, lens, lm, emis, trans, rows, need, wide_s: int,
         raise ValueError(
             f"tables at {S} slots a lane must take the "
             f"{'wide' if wide else 'packed'} layout (wide from {wide_s})")
+    check_tensors({"codes": (codes, torch.uint8, None),
+                   "lens": (lens, torch.int32, (B,)),
+                   "lm": (lm, torch.float32, (B, 4)),
+                   "emis": (emis, torch.float32,
+                            (P, Kp, 2, S, 32) if wide
+                            else (P, Kp, S, 32, 2)),
+                   "trans": (trans, torch.float32,
+                             (P, 8, S, 32) if wide else (P, S, 2, 32, 4)),
+                   **more})
+
+
+def need_args(rows, need, P: int, pairs=None) -> dict:
+    """The Forward and Viterbi wrappers' column arguments for
+    :func:`check_packed`: ``rows`` int64 [n], ``need`` bool [P, n] and
+    ``pairs``, if given, an int32 [3, npairs] list (:func:`host_pairs`)."""
     n = rows.shape[0]
-    want = {"codes": (codes, torch.uint8, None),
-            "lens": (lens, torch.int32, (B,)),
-            "lm": (lm, torch.float32, (B, 4)),
-            "emis": (emis, torch.float32,
-                     (P, Kp, 2, S, 32) if wide else (P, Kp, S, 32, 2)),
-            "trans": (trans, torch.float32,
-                      (P, 8, S, 32) if wide else (P, S, 2, 32, 4)),
-            "rows": (rows, torch.int64, (n,)),
+    want = {"rows": (rows, torch.int64, (n,)),
             "need": (need, torch.bool, (P, n))}
     if pairs is not None:
         want["pairs"] = (pairs, torch.int32, (3, pairs.shape[-1]))
-    check_tensors(want)
+    return want
 
 
 def host_pairs(rows: np.ndarray, need: np.ndarray) -> np.ndarray:

@@ -25,12 +25,11 @@ warp lane ``l`` reads its ``S`` slots with coalesced loads:
   is [P, Kp, 2, S, 32] (the M then the I scores of a residue) and
   ``vit_trans`` [P, 8, S, 32], striped (:func:`unpacked` undoes either
   layout);
-* ``fwd_ems`` / ``fwd_eis`` / ``fwd_tr``: the same tables in odds space
-  (``exp``, 0 where absent), striped [P, Kp, S, 32] and [P, 8, S, 32],
-  read by the survivor-rows kernel;
-* ``fwd_emis`` and ``fwd_trans``: the odds tables of the Forward filter
-  kernel in the packed layouts of ``vit_emis`` and ``vit_trans``, wide
-  from ``S = FWD_WIDE_S`` on.
+* ``fwd_emis`` and ``fwd_trans``: the same tables in odds space
+  (``exp``, 0 where absent) in the packed layouts of ``vit_emis`` and
+  ``vit_trans``, wide from ``S = FWD_WIDE_S`` on, read by the Forward
+  filter kernel and (in the narrow layout: S <= 24) by the survivor-rows
+  kernels.
 
 ``SeqDevice`` holds one length bucket of target sequences on an explicit
 device.  The JAX package imports JAX at load, so the packing is
@@ -233,15 +232,13 @@ def kernel_tables(f: dict) -> dict:
     tr[:, 7, :Mp - 1] = np.where(live, f["tDD"][:, 1:Mp], NEGMASS)
     tr = np.maximum(tr, NEGMASS)
 
-    s = np.ascontiguousarray
-    ems, eis, otr = _xexp(msc), _xexp(isc), _xexp(tr)
     vit_emis, vit_trans = packed(msc, isc, tr, VIT_WIDE_S)
-    fwd_emis, fwd_trans = packed(ems, eis, otr, FWD_WIDE_S)
-    return {"msv_w16": s(striped(w16)), "msv_scal": scal,
-            "msv_odds": odds, "vit_emis": vit_emis,
-            "vit_trans": vit_trans, "fwd_ems": s(striped(ems)),
-            "fwd_eis": s(striped(eis)), "fwd_tr": s(striped(otr)),
-            "fwd_emis": fwd_emis, "fwd_trans": fwd_trans}
+    fwd_emis, fwd_trans = packed(_xexp(msc), _xexp(isc), _xexp(tr),
+                                 FWD_WIDE_S)
+    return {"msv_w16": np.ascontiguousarray(striped(w16)),
+            "msv_scal": scal, "msv_odds": odds, "vit_emis": vit_emis,
+            "vit_trans": vit_trans, "fwd_emis": fwd_emis,
+            "fwd_trans": fwd_trans}
 
 
 class ProfileBatch(nn.Module):

@@ -40,8 +40,9 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
     ``pairs`` None or the int32 [3, npairs] list of ``need``
     (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
-    _pairs.check_packed(codes, lens, lm, emis, trans, rows, need,
-                        FWD_WIDE_S, pairs)
+    _pairs.check_packed(codes, lens, lm, emis, trans, FWD_WIDE_S,
+                        _pairs.need_args(rows, need, emis.shape[0],
+                                         pairs))
     if codes.device.type == "cpu":
         return fwd_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":

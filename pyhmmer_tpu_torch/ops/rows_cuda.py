@@ -15,8 +15,10 @@ It replaces the TPU kernels ``pyhmmer_tpu/ops/rows_pallas.py``
 * ``fsc`` [G] the f32 Forward parser score, ``bsc`` [G] the Backward
   score, which the caller holds against ``fsc``.
 
-Everything is f32; the plain version uses no matmul, so no TF32 setting
-applies to it.
+Both read the Forward filter kernel's packed odds tables ``fwd_emis`` /
+``fwd_trans`` of ``ops/batch.py`` (S <= 24 slots a lane: the narrow
+layout).  Everything is f32; the plain version uses no matmul, so no TF32
+setting applies to it.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from . import _build, _pairs
-from .batch import NEGMASS, ProfileBatch, SeqDevice, unstriped
+from .batch import (FWD_WIDE_S, NEGMASS, ProfileBatch, SeqDevice,
+                    packed_stripes, unpacked)
 
 #: kernel launches made by :func:`rows_scores` (reset by the caller)
 launches = 0
@@ -57,9 +60,8 @@ def survivor_rows(pb: ProfileBatch, seq: SeqDevice, pair_p, pair_b):
 
     def dev(a):
         return torch.as_tensor(a[order].astype(np.int32), device=seq.device)
-    terms, fsc, bsc = rows_scores(seq.codes, seq.lens, seq.lm, pb.fwd_ems,
-                                  pb.fwd_eis, pb.fwd_tr, dev(pair_p),
-                                  dev(pair_b))
+    terms, fsc, bsc = rows_scores(seq.codes, seq.lens, seq.lm, pb.fwd_emis,
+                                  pb.fwd_trans, dev(pair_p), dev(pair_b))
     return terms, fsc, bsc, order
 
 
@@ -75,28 +77,23 @@ def ext_rows(terms: np.ndarray, L: int) -> np.ndarray:
     return np.stack([btot, etot, mocc])
 
 
-def rows_scores(codes, lens, lm, ems, eis, tr, pair_p, pair_row):
+def rows_scores(codes, lens, lm, emis, trans, pair_p, pair_row):
     """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``lm`` [B, 4] f32
-    length model; ``ems``/``eis`` [P, Kp, S, 32] f32 emission odds, ``tr``
-    [P, 8, S, 32] f32 transition odds (``ops/batch.py``) with S <= 24;
-    ``pair_p``/``pair_row`` [G] int32.  Returns (terms [G, Lmax + 1, 3],
-    fsc [G], bsc [G]), f32."""
+    length model; ``emis`` [P, Kp, S, 32, 2] f32 (M, I) emission odds and
+    ``trans`` [P, S, 2, 32, 4] f32 transition odds, packed
+    (``ops/batch.py``) with S <= 24; ``pair_p``/``pair_row`` [G] int32.
+    Returns (terms [G, Lmax + 1, 3], fsc [G], bsc [G]), f32."""
     B, Lmax = codes.shape
-    P, Kp, S, _ = ems.shape
     G = pair_p.shape[0]
-    _pairs.check_tensors({"codes": (codes, torch.uint8, None),
-                          "lens": (lens, torch.int32, (B,)),
-                          "lm": (lm, torch.float32, (B, 4)),
-                          "ems": (ems, torch.float32, None),
-                          "eis": (eis, torch.float32, (P, Kp, S, 32)),
-                          "tr": (tr, torch.float32, (P, 8, S, 32)),
-                          "pair_p": (pair_p, torch.int32, (G,)),
-                          "pair_row": (pair_row, torch.int32, (G,))}, ems)
+    _pairs.check_packed(codes, lens, lm, emis, trans, FWD_WIDE_S,
+                        {"pair_p": (pair_p, torch.int32, (G,)),
+                         "pair_row": (pair_row, torch.int32, (G,))})
+    Kp, S = emis.shape[1], packed_stripes(trans)
     if S > MAX_S:
         raise ValueError(f"stripe width {S} exceeds the rows kernels' "
                          f"{MAX_S} (model width {32 * MAX_S})")
     if codes.device.type == "cpu":
-        return rows_plain(codes, lens, lm, ems, eis, tr, pair_p, pair_row)
+        return rows_plain(codes, lens, lm, emis, trans, pair_p, pair_row)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     global launches
@@ -107,15 +104,15 @@ def rows_scores(codes, lens, lm, ems, eis, tr, pair_p, pair_row):
     bsc = torch.empty((G,), **f32)
     P_ = _build.ptr
     err = _build.lib().rows_launch(
-        P_(codes), Lmax, P_(lens), P_(lm), P_(ems), P_(eis), P_(tr),
-        P_(pair_p), P_(pair_row), G, Kp, S, P_(frows), P_(fsc), P_(terms),
-        P_(bsc), _build.stream_ptr(codes))
+        P_(codes), Lmax, P_(lens), P_(lm), P_(emis), P_(trans), P_(pair_p),
+        P_(pair_row), G, Kp, S, P_(frows), P_(fsc), P_(terms), P_(bsc),
+        _build.stream_ptr(codes))
     _build.check(err, "rows_launch")
     launches += 1
     return terms, fsc, bsc
 
 
-def rows_plain(codes, lens, lm, ems, eis, tr, pair_p, pair_row):
+def rows_plain(codes, lens, lm, emis, trans, pair_p, pair_row):
     """The two passes of ``csrc/rows.cu`` in plain PyTorch, batched over
     [G, Mk] with a loop over sequence rows; the forward D->D chain is a
     Hillis-Steele scan of affine maps and the backward one the same scan
@@ -127,7 +124,7 @@ def rows_plain(codes, lens, lm, ems, eis, tr, pair_p, pair_row):
     terms = torch.zeros((G, Lmax + 1, NT), **f32)
     if G == 0:
         return terms, torch.empty((0,), **f32), torch.empty((0,), **f32)
-    ems, eis, tr = (unstriped(t) for t in (ems, eis, tr))
+    ems, eis, tr = unpacked(emis, trans)
     Mk = ems.shape[-1]
     pp, pr = pair_p.long(), pair_row.long()
     ar = torch.arange(G, device=dev)

@@ -55,8 +55,9 @@ def vit_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
 def _scores(codes, lens, lm, emis, trans, rows, need, pairs, route: str):
     """:func:`vit_scores` on the kernel's code path ``route``
     (:data:`ROUTES`; a path that does not compile at the width raises)."""
-    _pairs.check_packed(codes, lens, lm, emis, trans, rows, need,
-                        VIT_WIDE_S, pairs)
+    _pairs.check_packed(codes, lens, lm, emis, trans, VIT_WIDE_S,
+                        _pairs.need_args(rows, need, emis.shape[0],
+                                         pairs))
     if codes.device.type == "cpu":
         return vit_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":

@@ -111,6 +111,24 @@ def smoke_module():
     return mod
 
 
+def kernel_ms(call, names):
+    """Device ms of one ``call``: of the kernels whose profiler key holds
+    one of ``names`` (each kernel's mean over the launches the profiler
+    recorded -- it may drop one -- summed over the kernels), and of every
+    kernel of the call."""
+    import torch
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            call()
+        torch.cuda.synchronize()
+    events = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+              for e in prof.key_averages()]
+    mine = sum(us / max(1, n) for k, us, n in events
+               if any(name in k for name in names))
+    return (mine / 1e3, sum(us for _, us, _ in events) / 1e3 / PROFILED)
+
+
 def search_memory(queries, targets):
     """Peak device memory of three ``hmmsearch(device="cuda")`` calls
     after a warm one, as ``chip_smoke.py`` phase 3 takes it (each call
@@ -191,23 +209,6 @@ def worker_filter(root, kernel):
             captured.append((f"width{share}", (pb, dev, cols,
                                                need.to("cuda"))))
 
-    def kernel_ms(call):
-        """Device ms of one launch of the kernels (their total over the
-        launches the profiler recorded: it may drop one) and of every
-        kernel of a call."""
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILED):
-                call()
-            torch.cuda.synchronize()
-        events = [(e.key, getattr(e, "self_device_time_total", 0.0),
-                   e.count) for e in prof.key_averages()]
-        mine = [(us, n) for k, us, n in events
-                if any(name in k for name in names)]
-        return (sum(us for us, _ in mine) / 1e3
-                / max(1, sum(n for _, n in mine)),
-                sum(us for _, us, _ in events) / 1e3 / PROFILED)
-
     # the kernel's code paths, where the checkout's wrapper has them
     routes = (list(mod.ROUTES)[1:] if hasattr(mod, "_scores") else [])
     out = {"root": root, "search_memory": memory, "launches": [],
@@ -219,7 +220,7 @@ def worker_filter(root, kernel):
         call = lambda: getattr(mod, fn)(*args)  # noqa: E731
         reps = 3 if dev.Lmax > 8192 else 20
         ms = cuda_ms(call, reps)
-        k_ms, d_ms = kernel_ms(call)
+        k_ms, d_ms = kernel_ms(call, names)
         scores = call()
         route_ms = {}
         for route in routes:
@@ -228,7 +229,7 @@ def worker_filter(root, kernel):
                 pb.vit_trans, rows, need, args[4] if len(args) > 4 else None,
                 route)
             try:
-                route_ms[route] = kernel_ms(on_route)[0]
+                route_ms[route] = kernel_ms(on_route, names)[0]
                 err = (on_route() - scores)[need].abs().max().item()
                 route_ms[route + "_max_abs_diff"] = err
             except RuntimeError:
@@ -255,6 +256,101 @@ def worker_filter(root, kernel):
         torch.cuda.synchronize()
         out["wall_s"].append(time.time() - t)
         out["stage_fetched_s"].append(eng.last_timing[mark])
+    for kind in ("main", "forced"):
+        out[f"{kind}_ms_total"] = float(np.sum(
+            [r["ms"] for r in out["launches"] if r["kind"] == kind]))
+        out[f"{kind}_kernel_ms_total"] = float(np.sum(
+            [r["kernel_ms"] for r in out["launches"] if r["kind"] == kind]))
+    print(json.dumps(out), flush=True)
+
+
+def worker_rows(root):
+    """The survivor rows of ``root`` (``rows_cuda.survivor_rows``, as the
+    engine calls it) at every launch of one smoke search with the rows
+    stage on and of one with the cascade forced, then at the two rows
+    parity shapes of ``chip_smoke.py``."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from pyhmmer_tpu_torch import _synthetic as syn
+    from pyhmmer_tpu_torch import engine as E
+    from pyhmmer_tpu_torch.ops import _build, rows_cuda
+
+    C = smoke_module()
+    names = ("fwd_rows_kernel<", "bck_rows_kernel<", "rows_kernel<")
+    queries, _, targets, _ = syn.smoke_workload()
+    memory = search_memory(queries, targets)
+    captured = [(kind, c) for kind, forced in (("main", False),
+                                               ("forced", True))
+                for c in C.main_path_launches(
+                    rows_cuda, "survivor_rows", queries, targets, forced,
+                    device_rows=True)]
+    coalesced = E.group_queries(queries)
+    devs = {b[3].Lmax: b[3] for b in E._Buckets(targets, "cuda").buckets}
+    big = max(coalesced, key=lambda k: len(coalesced[k]))
+    mid = max((k for k in coalesced if 384 < k <= 768),
+              key=lambda k: len(coalesced[k]))
+    gen = torch.Generator().manual_seed(0)
+    for Mp, Lmax, npairs in ((big, 512, 256), (mid, 2048, 64)):
+        pb = C.chunk_batch(queries, coalesced[Mp], Mp)
+        dev = devs[Lmax]
+        captured.append(("parity", (pb, dev, *C.rows_pairs(pb, dev, npairs,
+                                                           gen))))
+    # the kernels' code paths, where the checkout's wrapper has them
+    routes = list(getattr(rows_cuda, "ROUTES", {}))[1:]
+    out = {"root": root, "search_memory": memory, "launches": [],
+           "ptxas": {k: v for k, v in C.ptxas_summary(
+               _build.ptxas_report()).items()
+               if any(k.startswith(n.rstrip("<")) for n in names)}}
+    for kind, (pb, dev, pair_p, pair_b) in captured:
+        pair_p, pair_b = np.asarray(pair_p), np.asarray(pair_b)
+        call = functools.partial(rows_cuda.survivor_rows, pb, dev, pair_p,
+                                 pair_b)
+        ms = cuda_ms(call, 20)
+        k_ms, d_ms = kernel_ms(call, names)
+        terms, fsc, bsc, order = call()
+        route_ms = {}
+        if routes:
+            pp = torch.as_tensor(pair_p[order], device="cuda")
+            pr = torch.as_tensor(pair_b[order], device="cuda")
+            for route in routes:
+                on_route = functools.partial(
+                    rows_cuda._scores, dev.codes, dev.lens, dev.lm,
+                    pb.fwd_emis, pb.fwd_trans, pp, pr, route)
+                try:
+                    route_ms[route] = kernel_ms(on_route, names)[0]
+                    err = (on_route()[1] - fsc).abs().max().item()
+                    route_ms[route + "_max_abs_diff"] = err
+                except RuntimeError:
+                    pass                 # not compiled at this width
+        lens = dev.lengths[pair_b].astype(np.float64)
+        cells = float((pb.M[pair_p].astype(np.float64) * lens).sum())
+        # inputs read once, outputs written once: the packed tables (the
+        # striped ones hold the same bytes), targets, pairs; terms and
+        # both scores
+        nbytes = (sum(t.numel() * t.element_size() for t in (
+            dev.codes, dev.lens, dev.lm, pb.fwd_emis, pb.fwd_trans))
+            + 8 * len(pair_p) + terms.numel() * 4 + 8 * len(pair_p))
+        out["launches"].append(dict(
+            kind=kind, npairs=len(pair_p), P=pb.P, Mk=32 * pb.S,
+            Lmax=dev.Lmax, lengths=[int(x) for x in lens],
+            residues=float(lens.sum()), cells=cells, bytes=nbytes, ms=ms,
+            reps=20, kernel_ms=k_ms, device_ms=d_ms,
+            route_kernel_ms=route_ms,
+            scores=[float(x) for t in (fsc, bsc)
+                    for x in t.cpu().numpy()[np.argsort(order)]]))
+    eng = E.SearchEngine(queries[0].alphabet, device="cuda",
+                         device_rows=True)
+    eng.search(queries, targets)
+    out["stage_fetched_s"], out["wall_s"] = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        eng.search(queries, targets)
+        torch.cuda.synchronize()
+        out["wall_s"].append(time.time() - t)
+        out["stage_fetched_s"].append(eng.last_timing["rows_done"])
     for kind in ("main", "forced"):
         out[f"{kind}_ms_total"] = float(np.sum(
             [r["ms"] for r in out["launches"] if r["kind"] == kind]))
@@ -335,8 +431,12 @@ def add_bounds(runs, kernel):
     C = smoke_module()
     for run in runs:
         for r in run["launches"]:
-            ops_s = (C.vit_ops_s(r["cells"]) if kernel == "vit"
-                     else C.FILTER_FLOPS * r["cells"] / C.F32_RATE)
+            if kernel == "rows":
+                ops_s = C.rows_ops_s(r["cells"], r["residues"])
+            elif kernel == "vit":
+                ops_s = C.vit_ops_s(r["cells"])
+            else:
+                ops_s = C.FILTER_FLOPS * r["cells"] / C.F32_RATE
             bytes_s = r["bytes"] / C.HBM_RATE
             r["bound_ms"] = 1e3 * max(ops_s, bytes_s)
             r["bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
@@ -365,13 +465,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--worker")
-    ap.add_argument("--kernel", choices=("msv", "fwd", "vit"),
+    ap.add_argument("--kernel", choices=("msv", "fwd", "vit", "rows"),
                     default="msv")
     ap.add_argument("--out")
     args = ap.parse_args()
     if args.worker:
         if args.kernel == "msv":
             worker(os.path.abspath(args.worker))
+        elif args.kernel == "rows":
+            worker_rows(os.path.abspath(args.worker))
         else:
             worker_filter(os.path.abspath(args.worker), args.kernel)
         return

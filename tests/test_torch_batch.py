@@ -41,6 +41,33 @@ def stacks():
     return out
 
 
+def odds_tables(tpb):
+    """The Forward and rows kernels' odds from ``tpb``'s shared fields,
+    whatever the packing: (M, I) emission odds [P, Kp, Mk] and transition
+    odds [P, 8, Mk] at the kernel width ``Mk = 32 S``; slot s is state
+    s + 1, and a transition that is absent or leaves the model is 0."""
+    def odds(a):
+        a = np.asarray(a, np.float64)
+        return np.where(a > -600.0, np.exp(np.minimum(a, 600.0)),
+                        0.0).astype(np.float32)
+    P, Kp, Mp = tpb.msc.shape
+    Mk = 32 * tpb.S
+    em = np.zeros((P, Kp, Mk), np.float32)
+    ei = np.zeros((P, Kp, Mk), np.float32)
+    em[..., :Mp] = odds(tpb.msc)
+    ei[..., :Mp] = odds(tpb.isc)
+    tr = np.zeros((P, 8, Mk), np.float32)
+    for t, name in enumerate(("tMM", "tIM", "tDM")):   # from slot s - 1
+        tr[:, t, 1:Mp] = odds(getattr(tpb, name)[:, 1:Mp])
+    tr[:, 3, :Mp] = odds(tpb.tBM)
+    tr[:, 4, :Mp] = odds(tpb.tMI[:, 1:Mp + 1])
+    tr[:, 5, :Mp] = odds(tpb.tII[:, 1:Mp + 1])
+    live = tpb.kmask[:, 1:Mp]                         # state s + 2 exists
+    tr[:, 6, :Mp - 1] = np.where(live, odds(tpb.tMD[:, 1:Mp]), 0.0)
+    tr[:, 7, :Mp - 1] = np.where(live, odds(tpb.tDD[:, 1:Mp]), 0.0)
+    return em, ei, tr
+
+
 def jax_arrays(jpb):
     d = {n: getattr(jpb, n) for n in TB.FIELDS}
     d.update(Mp=jpb.Mp, Kp=jpb.Kp, scale_b=jpb.scale_b)
@@ -107,10 +134,13 @@ def test_kernel_tables_layout(stacks):
         np.testing.assert_array_equal(tr[p, 6, :M - 1], jpb.tMD[p, 1:M])
         np.testing.assert_array_equal(tr[p, 7, :M - 1], jpb.tDD[p, 1:M])
         assert (tr[p, 6:, M - 1:] == TB.NEGMASS).all()
-        assert (TB.unstriped(tpb.fwd_tr).numpy()[p, 6:, M - 1:]
-                == 0.0).all()
-    # the odds tables are the log tables through exp
+    # the odds tables are the log tables through exp, and the odds of the
+    # shared fields: 0 past each model's last D->D
     ems, eis, otr = TB.unpacked(tpb.fwd_emis, tpb.fwd_trans)
+    for got, want in zip((ems, eis, otr), odds_tables(tpb)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    for p, M in enumerate(jpb.M):
+        assert (otr.numpy()[p, 6:, M - 1:] == 0.0).all()
     np.testing.assert_array_equal(otr.numpy(), TB._xexp(tr))
     np.testing.assert_array_equal(ems.numpy(), TB._xexp(msc.numpy()))
     # the MSV table is pre-biased, bias - cost, in 16 bits
@@ -121,6 +151,19 @@ def test_kernel_tables_layout(stacks):
     assert (w[:, :, jpb.Mp:] == bias - 255).all()
     nonres = jpb.profiles[0].alphabet.nonresidue_code
     assert (tpb.msv_odds.numpy()[:, nonres] == 0.0).all()
+
+
+@pytest.mark.parametrize("Mp", [Mp for _, Mp in STACKS])
+def test_profile_batch_holds_one_set_of_odds_tables(stacks, Mp):
+    """The Forward and the rows kernels read the same packed odds tables
+    (``fwd_emis``, ``fwd_trans``); the striped copies the rows kernels
+    once read (``fwd_ems``, ``fwd_eis``, ``fwd_tr``) are gone."""
+    tpb = stacks[Mp][2]
+    assert {n for n, _ in tpb.named_buffers()} == {
+        "msv_w16", "msv_scal", "msv_odds", "vit_emis", "vit_trans",
+        "fwd_emis", "fwd_trans"}
+    for name in ("fwd_ems", "fwd_eis", "fwd_tr"):
+        assert not hasattr(tpb, name)
 
 
 def test_profile_batch_moves_with_to(stacks):

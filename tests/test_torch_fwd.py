@@ -32,6 +32,7 @@ from pyhmmer_tpu_torch.ops import batch as TB  # noqa: E402
 from pyhmmer_tpu_torch.ops import _pairs, fwd_cuda  # noqa: E402
 from pyhmmer_tpu_torch.plan7 import Background as TBackground  # noqa: E402
 from pyhmmer_tpu_torch.plan7 import Profile as TProfile  # noqa: E402
+from test_torch_batch import odds_tables  # noqa: E402
 from test_torch_host import jax_hmm  # noqa: E402
 
 # the plain versions loop over small tensors: one intra-op thread per
@@ -208,31 +209,31 @@ def test_narrow_matches_float64_oracle(narrow):
 
 
 def test_packed_tables_hold_the_odds_tables(narrow):
-    """``fwd_emis`` / ``fwd_trans`` are the rows kernel's striped odds
-    tables, packed: lane l holds slots l*S .. l*S+S-1, slot j's (M, I)
-    odds of a residue side by side and its 8 transition odds in two
-    planes of 4, each plane of a slot contiguous over the warp."""
+    """``fwd_emis`` / ``fwd_trans`` hold the odds of the shared fields,
+    packed: lane l holds slots l*S .. l*S+S-1, slot j's (M, I) odds of a
+    residue side by side and its 8 transition odds in two planes of 4,
+    each plane of a slot contiguous over the warp."""
     tpb = narrow.tpb
     P, Kp, S = tpb.fwd_emis.shape[:3]
     assert S == tpb.S == TB.packed_stripes(tpb.fwd_trans) < TB.FWD_WIDE_S
     assert tpb.fwd_emis.shape == (P, Kp, S, 32, 2)
     assert tpb.fwd_trans.shape == (P, S, 2, 32, 4)
+    want = [torch.from_numpy(a) for a in odds_tables(tpb)]
     ems, eis, tr = TB.unpacked(tpb.fwd_emis, tpb.fwd_trans)
-    assert torch.equal(ems, TB.unstriped(tpb.fwd_ems))
-    assert torch.equal(eis, TB.unstriped(tpb.fwd_eis))
-    assert torch.equal(tr, TB.unstriped(tpb.fwd_tr))
+    for got, w in zip((ems, eis, tr), want):
+        assert torch.equal(got, w)
     lane, j = 31, S - 1
-    assert tpb.fwd_trans[0, j, 1, lane, 2] == tr[0, 6, lane * S + j]
-    assert tpb.fwd_trans[0, j, 0, lane, 3] == tr[0, 3, lane * S + j]
-    assert tpb.fwd_emis[0, 3, j, lane, 1] == eis[0, 3, lane * S + j]
+    assert tpb.fwd_trans[0, j, 1, lane, 2] == want[2][0, 6, lane * S + j]
+    assert tpb.fwd_trans[0, j, 0, lane, 3] == want[2][0, 3, lane * S + j]
+    assert tpb.fwd_emis[0, 3, j, lane, 1] == want[1][0, 3, lane * S + j]
 
 
 @pytest.mark.parametrize("case", STACKS[2:], indirect=True,
                          ids=lambda s: f"Mp{s[1]}")
 def test_wide_tables_are_striped(case):
     """From ``FWD_WIDE_S`` slots a lane on (Mp 800 has 32) the packed
-    tables are the striped odds tables: the M then the I odds of a
-    residue, and one table per transition."""
+    tables hold the odds of the shared fields striped: the M then the I
+    odds of a residue, and one table per transition."""
     tpb = TB.ProfileBatch(port_profiles(case.models), Mp=case.jpb.Mp)
     S = tpb.S
     assert (S >= TB.FWD_WIDE_S) == (case.jpb.Mp > 32 * 24)
@@ -241,11 +242,11 @@ def test_wide_tables_are_striped(case):
         return
     P, Kp = tpb.P, tpb.Kp
     assert tpb.fwd_emis.shape == (P, Kp, 2, S, 32)
-    assert torch.equal(tpb.fwd_emis[:, :, 0], tpb.fwd_ems)
-    assert torch.equal(tpb.fwd_emis[:, :, 1], tpb.fwd_eis)
-    assert torch.equal(tpb.fwd_trans, tpb.fwd_tr)
-    ems, eis, tr = TB.unpacked(tpb.fwd_emis, tpb.fwd_trans)
-    assert torch.equal(tr, TB.unstriped(tpb.fwd_tr))
+    em, ei, tr = (TB.striped(torch.from_numpy(a))
+                  for a in odds_tables(tpb))
+    assert torch.equal(tpb.fwd_emis[:, :, 0], em)
+    assert torch.equal(tpb.fwd_emis[:, :, 1], ei)
+    assert torch.equal(tpb.fwd_trans, tr)
 
 
 def test_pairs_keep_their_places():

@@ -378,8 +378,8 @@ def rows_case(cuda, request):
     pair_row = torch.arange(n, dtype=torch.int32, device=cuda) % 48
     return SimpleNamespace(pb=pb, dev=dev, lengths=lengths,
                            pair_row=pair_row.cpu().numpy(),
-                           args=(dev.codes, dev.lens, dev.lm, pb.fwd_ems,
-                                 pb.fwd_eis, pb.fwd_tr, pair_p, pair_row))
+                           args=(dev.codes, dev.lens, dev.lm, pb.fwd_emis,
+                                 pb.fwd_trans, pair_p, pair_row))
 
 
 def test_rows_kernels_match_plain(rows_case):

@@ -179,18 +179,37 @@ def test_rows_reject_other_devices_and_bad_pairs(case):
     """A tensor neither on the CPU nor on a CUDA device, tensors on two
     devices, and pair indices outside the profiles or targets raise."""
     dev, pb = case.dev, case.tpb
-    meta = [t.to("meta") for t in (dev.codes, dev.lens, dev.lm, pb.fwd_ems,
-                                    pb.fwd_eis, pb.fwd_tr)]
+    meta = [t.to("meta") for t in (dev.codes, dev.lens, dev.lm,
+                                    pb.fwd_emis, pb.fwd_trans)]
     pairs = [torch.zeros(2, dtype=torch.int32, device="meta")] * 2
     with pytest.raises(ValueError, match="unsupported device"):
         rows_cuda.rows_scores(*meta, *pairs)
     with pytest.raises(ValueError):
-        rows_cuda.rows_scores(dev.codes, dev.lens, dev.lm, pb.fwd_ems,
-                              pb.fwd_eis, pb.fwd_tr, *pairs)
+        rows_cuda.rows_scores(dev.codes, dev.lens, dev.lm, pb.fwd_emis,
+                              pb.fwd_trans, *pairs)
     for p, b in ((pb.P, 0), (0, dev.B), (-1, 0)):
         with pytest.raises(IndexError):
             rows_cuda.survivor_rows(pb, dev, np.array([0, p]),
                                     np.array([0, b]))
+
+
+def test_rows_refuse_other_table_layouts(case):
+    """The rows kernels read the packed narrow layout only: the same odds
+    striped ([P, Kp, S, 32] and [P, 8, S, 32], the layout they once read)
+    or in the wide layout, and a model wider than their 24 slots a lane,
+    raise before any kernel could misread them."""
+    dev, pb = case.dev, case.tpb
+    pairs = [torch.zeros(2, dtype=torch.int32)] * 2
+    em, ei, tr = TB.unpacked(pb.fwd_emis, pb.fwd_trans)
+    striped = (TB.striped(em).contiguous(), TB.striped(tr).contiguous())
+    wide = [torch.from_numpy(a) for a in TB.packed(
+        em.numpy(), ei.numpy(), tr.numpy(), wide_s=1)]
+    too_wide = (torch.zeros((pb.P, pb.Kp, 2, 32, 32)),
+                torch.zeros((pb.P, 8, 32, 32)))
+    for emis, trans in (striped, wide, too_wide):
+        with pytest.raises(ValueError):
+            rows_cuda.rows_scores(dev.codes, dev.lens, dev.lm, emis, trans,
+                                  *pairs)
 
 
 def consensus_pair(case):
