@@ -13,19 +13,22 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at main-path shapes (for MSV also the widest chunk x the
    longest bucket; for Forward also the launch with the most pairs of
-   one smoke search, and for Viterbi that of one smoke search and of one
-   with the cascade forced, replayed with their own arguments and the
+   one smoke search, for Viterbi that of one smoke search and of one
+   with the cascade forced, and for the survivor rows every launch of
+   the smoke search with the rows stage on and the forced cascade's
+   launch with the most pairs, replayed with their own arguments and the
    engine's pair lists), with the bars
    below (MSV: ovf identical, dx exact on
    every pair neither side flags, biaslog within 0.25 (2e-3 + 1e-6 L)
    nats); both are timed with CUDA events (warm, many launches, in turns
-   plain/kernel/kernel/plain; the survivor-rows kernel against one timed
+   plain/kernel/kernel/plain; the survivor-rows kernels against one timed
    plain call), beside each shape's bound (``bound``);
 3. search: ``hmmsearch(device="cuda")`` once warm, then three timed runs;
    every kernel's launch counter must be > 0 in the last run (the rows
    kernel's must stay 0); a fifth run through ``SearchEngine.search``
-   reads the engine's stage marks and the bytes of the Forward kernel's
-   packed tables.  Then the same with the device rows
+   reads the engine's stage marks and the bytes of the kernel tables
+   (the rows kernels read the Forward kernel's).  Then the same with the
+   device rows
    stage on (``device_rows=True``): the rows kernel's counter and the
    engine's ``n_rows_ext`` must be > 0;
 4. correctness: for three distinct queries (padded model width <= 384,
@@ -88,8 +91,8 @@ ROWS_SCORE_TOL = 2e-3
 #: DP cell (M x L, real widths and lengths, pairs the launch computes):
 #: MSV 4 (HMMER's max with B, add bias, subtract cost, max into E) plus
 #: the bias filter's 10 float operations per (profile, residue); Forward
-#: 16 (M 8, I 4, D 3, E 1) at the FMA rate; rows 40 (Forward and Backward
-#: parsers and the decode).  Viterbi, max-plus, has no FMA: per cell the
+#: 16 (M 8, I 4, D 3, E 1) at the FMA rate; rows below.  Viterbi,
+#: max-plus, has no FMA: per cell the
 #: function needs 10 FADD (M 5, I 3, D 2) and 6 FMNMX (M 3 over its four
 #: predecessors, I 1, D 1, E 1), at the issue rates of compute capability
 #: 9.0 in the CUDA C++ Programming Guide's arithmetic-throughput table:
@@ -110,8 +113,9 @@ VIT_FADD, VIT_FMNMX = 10, 6
 #: 1; B 1 FFMA; M 4 with the I cell's emission product; I 2; D 2; the
 #: rescale of M and I 2) f32 instructions and 1 FMNMX (the row's max);
 #: per row of a pair 5 MUFU (the log of each pass's scale, the three exp
-#: of the decode terms) at 16 a clock a SM.  (PR 2 counted 40 float
-#: operations a cell at the FMA rate of 67e12, a bound 1.45x lower.)
+#: of the decode terms) at 16 a clock a SM.  (The earlier count, 40
+#: float operations a cell at the FMA rate of 67e12, gave a bound 1.45x
+#: lower.)
 MUFU_RATE = 132 * 16 * 1.98e9
 ROWS_F32, ROWS_FMNMX, ROWS_MUFU = 27, 1, 5
 
@@ -576,14 +580,15 @@ def phase_search(queries, targets, device_rows=False):
     eng.search(queries, targets)
     torch.cuda.synchronize()
     marks = eng.last_timing
-    # the Forward kernel's packed tables, on the card beside the rows
-    # kernel's striped ones (the same bytes again)
-    packed = sum(t.numel() * t.element_size()
-                 for c in eng._model_cache.values()
-                 for t in (c[3].fwd_emis, c[3].fwd_trans))
+    # the kernel tables on the card, by name (the rows kernels read the
+    # Forward kernel's)
+    tables = {}
+    for c in eng._model_cache.values():
+        for name, t in c[3].named_buffers():
+            tables[name] = tables.get(name, 0) + t.numel() * t.element_size()
     say("search" + suffix, queries=len(queries), targets=len(targets),
         comparisons=ncmp, wall_s=walls, cmp_per_s=[ncmp / w for w in walls],
-        max_memory_allocated=peak, fwd_packed_table_bytes=packed,
+        max_memory_allocated=peak, table_bytes=tables,
         launches=launches,
         marks_wall_s=time.time() - t, stage_marks=marks)
     for k, n in launches.items():

@@ -56,8 +56,8 @@ SIGNATURES = {
     "fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P],
     # codes, Lmax, lens, lm, emis, trans, pair_p, pair_row, npairs, Kp,
-    # S, frows, fsc, terms, bsc, stream
-    "rows_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # S, route, frows, fsc, terms, bsc, stream
+    "rows_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P],
 }
 

@@ -41,6 +41,13 @@ NF = 5
 #: decode terms per row: term_b, term_e, term_w
 NT = 3
 TINY = 1e-30
+#: the kernels' code paths (``csrc/rows.cu:launch_rows``): one warp a
+#: pair, or several (from 6 slots a lane); ``auto``, what
+#: :func:`rows_scores` takes, picks the block route from 6 slots a lane
+#: while the launch's pairs fit the card at once, so a pair's rows may
+#: move by a few ulps with the launch's size (the routes add the D->D
+#: sums in another order)
+ROUTES = {"auto": 0, "warp": 1, "block": 2}
 
 
 def survivor_rows(pb: ProfileBatch, seq: SeqDevice, pair_p, pair_b):
@@ -83,6 +90,12 @@ def rows_scores(codes, lens, lm, emis, trans, pair_p, pair_row):
     ``trans`` [P, S, 2, 32, 4] f32 transition odds, packed
     (``ops/batch.py``) with S <= 24; ``pair_p``/``pair_row`` [G] int32.
     Returns (terms [G, Lmax + 1, 3], fsc [G], bsc [G]), f32."""
+    return _scores(codes, lens, lm, emis, trans, pair_p, pair_row, "auto")
+
+
+def _scores(codes, lens, lm, emis, trans, pair_p, pair_row, route: str):
+    """:func:`rows_scores` on the kernels' code path ``route``
+    (:data:`ROUTES`; a path that does not compile at the width raises)."""
     B, Lmax = codes.shape
     G = pair_p.shape[0]
     _pairs.check_packed(codes, lens, lm, emis, trans, FWD_WIDE_S,
@@ -105,8 +118,8 @@ def rows_scores(codes, lens, lm, emis, trans, pair_p, pair_row):
     P_ = _build.ptr
     err = _build.lib().rows_launch(
         P_(codes), Lmax, P_(lens), P_(lm), P_(emis), P_(trans), P_(pair_p),
-        P_(pair_row), G, Kp, S, P_(frows), P_(fsc), P_(terms), P_(bsc),
-        _build.stream_ptr(codes))
+        P_(pair_row), G, Kp, S, ROUTES[route], P_(frows), P_(fsc),
+        P_(terms), P_(bsc), _build.stream_ptr(codes))
     _build.check(err, "rows_launch")
     launches += 1
     return terms, fsc, bsc
@@ -116,7 +129,9 @@ def rows_plain(codes, lens, lm, emis, trans, pair_p, pair_row):
     """The two passes of ``csrc/rows.cu`` in plain PyTorch, batched over
     [G, Mk] with a loop over sequence rows; the forward D->D chain is a
     Hillis-Steele scan of affine maps and the backward one the same scan
-    over the reversed slots."""
+    over the reversed slots.  Each backward row is rescaled by its own
+    largest value (the kernel takes the row before's, which changes the
+    rounding of the terms, not their value)."""
     dev = codes.device
     Lmax = codes.shape[1]
     G = pair_p.shape[0]

@@ -382,24 +382,93 @@ def rows_case(cuda, request):
                                  pb.fwd_trans, pair_p, pair_row))
 
 
-def test_rows_kernels_match_plain(rows_case):
+def rows_routes(S):
+    """The rows kernels' routes that compile at stripe width ``S``
+    (``csrc/rows.cu:launch_rows``)."""
+    return ["warp"] + (["block"] if S >= 6 else [])
+
+
+def assert_rows_match_plain(args, lengths, pair_row, route):
+    """The rows kernels on ``route`` (``auto``: ``rows_scores``) against
+    ``rows_plain``: finite, scores within ``ROWS_SC`` nats, the decoded
+    rows within the JAX package's bars, zero past each pair's length."""
     before = rows_cuda.launches
-    k = rows_cuda.rows_scores(*rows_case.args)
+    k = (rows_cuda.rows_scores(*args) if route == "auto"
+         else rows_cuda._scores(*args, route))
     assert rows_cuda.launches == before + 1
-    p = rows_cuda.rows_plain(*rows_case.args)
+    p = rows_cuda.rows_plain(*args)
     torch.cuda.synchronize()
     (kt, kf, kb), (pt, pf, pbk) = ([x.cpu().numpy() for x in r]
                                    for r in (k, p))
-    assert np.isfinite(kt).all() and np.isfinite(kf).all()
-    assert np.abs(kf - pf).max() <= ROWS_SC
-    assert np.abs(kb - pbk).max() <= ROWS_SC
-    assert np.abs(kf - kb).max() <= ROWS_SC
-    for g, b in enumerate(rows_case.pair_row):
-        L = int(rows_case.lengths[b])
+    assert np.isfinite(kt).all() and np.isfinite(kf).all(), route
+    assert np.isfinite(kb).all(), route
+    assert np.abs(kf - pf).max() <= ROWS_SC, route
+    assert np.abs(kb - pbk).max() <= ROWS_SC, route
+    assert np.abs(kf - kb).max() <= ROWS_SC, route
+    for g, b in enumerate(pair_row):
+        L = int(lengths[b])
         np.testing.assert_allclose(rows_cuda.ext_rows(kt[g], L),
                                    rows_cuda.ext_rows(pt[g], L),
-                                   atol=ROWS_ATOL, rtol=ROWS_RTOL)
-        assert (kt[g, L + 1:] == 0).all()
+                                   atol=ROWS_ATOL, rtol=ROWS_RTOL,
+                                   err_msg=f"{route} pair {g} L {L}")
+        assert (kt[g, L + 1:] == 0).all(), route
+
+
+@pytest.mark.parametrize("route", ["auto", "warp", "block"])
+def test_rows_kernels_match_plain(rows_case, route):
+    assert_rows_match_plain(rows_case.args, rows_case.lengths,
+                            rows_case.pair_row, route)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 6, 8, 12, 16, 24],
+                         ids=lambda s: f"S{s}")
+def test_rows_every_width_and_route(cuda, S):
+    """Every stripe width the rows kernels compile (1 to 24 slots a lane,
+    on both sides of the thresholds of the transitions in registers, the
+    emissions loaded ahead and the block route) on every route, in one
+    launch of each profile (one model of about the full width, one of
+    about half) against 18 lanes whose lengths include 1, 31, 32, 33 and
+    2048 (the 32-row blocks' edges and the rows stage's longest bucket),
+    consensus and planted lanes and nonresidue codes inside targets."""
+    Mp = 32 * S
+    hmms = syn.sample_models((max(12, Mp - 12), max(10, Mp // 2)),
+                             seed=Mp + 41)
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                     multihit=True)
+                          for h in hmms], Mp=Mp).to(cuda)
+    assert pb.S == S
+    codes, lengths = syn.make_lanes(hmms, 18, 2048, seed=Mp + 43)
+    for i, L in zip((4, 5, 6), (31, 32, 33)):      # background lanes
+        codes[i, L:] = aa.nonresidue_code
+        lengths[i] = L
+    assert {1, 31, 32, 33, 2048} <= set(lengths.tolist())
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    n = 2 * len(lengths)
+    pair_p = torch.arange(n, dtype=torch.int32, device=cuda) // len(lengths)
+    pair_row = torch.arange(n, dtype=torch.int32, device=cuda) % len(lengths)
+    args = (dev.codes, dev.lens, dev.lm, pb.fwd_emis, pb.fwd_trans, pair_p,
+            pair_row)
+    for route in ["auto", *rows_routes(S)]:
+        assert_rows_match_plain(args, lengths, pair_row.cpu().numpy(),
+                                route)
+
+
+def test_rows_route_not_compiled_raises(cuda):
+    """Below 6 slots a lane there is no block route: asking for it raises;
+    nothing falls back."""
+    hmms = syn.sample_models((60,), seed=5)
+    aa = hmms[0].alphabet
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, Background(aa), 400)
+                          for h in hmms], Mp=64).to(cuda)
+    codes, lengths = syn.make_lanes(hmms, 8, 40, seed=6)
+    dev = TB.SeqDevice(codes, lengths, device=cuda)
+    pairs = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="rows_launch"):
+        rows_cuda._scores(dev.codes, dev.lens, dev.lm, pb.fwd_emis,
+                          pb.fwd_trans, pairs, pairs, "block")
 
 
 def test_engine_rows_stage_on_cuda(cuda, monkeypatch):
