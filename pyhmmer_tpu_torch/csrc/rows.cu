@@ -72,9 +72,10 @@
 //   its lane's column of NW maps; the lane scan is then a warp's as
 //   above.  Buffers alternate by row, so one barrier a row is enough: the
 //   forward's E, the backward's B sum, Q map and (one row late) max all
-//   join there.  It spreads a wide model's slots over more of the SM;
-//   where a launch has more pairs than the card holds at once, one warp
-//   a pair issues less and is the default.
+//   join there.  It spreads a wide model's slots over more of the SM
+//   and is the default from 12 slots a lane; where a launch has more
+//   pairs than the card holds at once, one warp a pair issues less and
+//   is the default.
 //
 // Padded slots take E like real ones but are cut off from them by the
 // zero transitions of the tables.
@@ -89,8 +90,9 @@ constexpr float TINY = 1e-30f;
 enum { F_B, F_E, F_J, F_C, F_RS, NF };  // forward row planes
 constexpr int NT = 3;                     // term_b, term_e, term_w
 // from this stripe width the default takes the block route while the
-// launch's pairs fit the card at once
-constexpr int ROWS_BLOCK_S = 6;
+// launch's pairs fit the card at once (at 6 and 8 slots a lane one warp
+// a pair was 8-13% faster on the smoke search's launches; PERF.md)
+constexpr int ROWS_BLOCK_S = 12;
 
 // warps a pair on the block route: 4 slots a thread (3 at S = 6); one
 // below 6 slots a lane, where there is no block route

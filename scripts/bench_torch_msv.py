@@ -124,9 +124,10 @@ def kernel_ms(call, names):
         torch.cuda.synchronize()
     events = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
               for e in prof.key_averages()]
-    mine = sum(us / max(1, n) for k, us, n in events
-               if any(name in k for name in names))
-    return (mine / 1e3, sum(us for _, us, _ in events) / 1e3 / PROFILED)
+    mine = {k: us / max(1, n) / 1e3 for k, us, n in events
+            if any(name in k for name in names)}
+    return (sum(mine.values()),
+            sum(us for _, us, _ in events) / 1e3 / PROFILED, mine)
 
 
 def search_memory(queries, targets):
@@ -220,7 +221,7 @@ def worker_filter(root, kernel):
         call = lambda: getattr(mod, fn)(*args)  # noqa: E731
         reps = 3 if dev.Lmax > 8192 else 20
         ms = cuda_ms(call, reps)
-        k_ms, d_ms = kernel_ms(call, names)
+        k_ms, d_ms, _ = kernel_ms(call, names)
         scores = call()
         route_ms = {}
         for route in routes:
@@ -275,10 +276,10 @@ def worker_rows(root):
 
     from pyhmmer_tpu_torch import _synthetic as syn
     from pyhmmer_tpu_torch import engine as E
-    from pyhmmer_tpu_torch.ops import _build, rows_cuda
+    from pyhmmer_tpu_torch.ops import _build, fwd_cuda, rows_cuda
 
     C = smoke_module()
-    names = ("fwd_rows_kernel<", "bck_rows_kernel<", "rows_kernel<")
+    names = ("fwd_rows_kernel<", "bck_rows_kernel<")
     queries, _, targets, _ = syn.smoke_workload()
     memory = search_memory(queries, targets)
     captured = [(kind, c) for kind, forced in (("main", False),
@@ -308,8 +309,18 @@ def worker_rows(root):
         call = functools.partial(rows_cuda.survivor_rows, pb, dev, pair_p,
                                  pair_b)
         ms = cuda_ms(call, 20)
-        k_ms, d_ms = kernel_ms(call, names)
+        k_ms, d_ms, by_kernel = kernel_ms(call, names)
         terms, fsc, bsc, order = call()
+        # the Forward filter kernel on the same pairs: the forward rows
+        # kernel runs its recurrence and also writes the rows
+        cols, col = np.unique(pair_b, return_inverse=True)
+        need = torch.zeros((pb.P, len(cols)), dtype=torch.bool)
+        need[torch.as_tensor(pair_p, dtype=torch.long),
+             torch.as_tensor(col, dtype=torch.long)] = True
+        fwd_ms = kernel_ms(functools.partial(
+            fwd_cuda.forward, pb, dev,
+            torch.as_tensor(cols.astype(np.int64), device="cuda"),
+            need.to("cuda")), ("fwd_kernel<",))[0]
         route_ms = {}
         if routes:
             pp = torch.as_tensor(pair_p[order], device="cuda")
@@ -319,7 +330,8 @@ def worker_rows(root):
                     rows_cuda._scores, dev.codes, dev.lens, dev.lm,
                     pb.fwd_emis, pb.fwd_trans, pp, pr, route)
                 try:
-                    route_ms[route] = kernel_ms(on_route, names)[0]
+                    route_ms[route], _, split = kernel_ms(on_route, names)
+                    route_ms[route + "_by_kernel"] = split
                     err = (on_route()[1] - fsc).abs().max().item()
                     route_ms[route + "_max_abs_diff"] = err
                 except RuntimeError:
@@ -337,6 +349,7 @@ def worker_rows(root):
             Lmax=dev.Lmax, lengths=[int(x) for x in lens],
             residues=float(lens.sum()), cells=cells, bytes=nbytes, ms=ms,
             reps=20, kernel_ms=k_ms, device_ms=d_ms,
+            kernel_ms_by_kernel=by_kernel, fwd_filter_kernel_ms=fwd_ms,
             route_kernel_ms=route_ms,
             scores=[float(x) for t in (fsc, bsc)
                     for x in t.cpu().numpy()[np.argsort(order)]]))
