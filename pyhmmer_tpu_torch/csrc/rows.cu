@@ -24,10 +24,12 @@
 // allocated them), plus the Backward score bsc = log bN[0] + rsb[0],
 // which the caller holds against fsc.  Every exponent is summed before
 // exp, so nothing leaves the f32 range on rows of up to a few thousand
-// residues; a pair whose fsc is NEGMASS writes zero terms.  Each row's
-// scale is the factor actually applied and its log is what rsf and rsb
-// accumulate, so the terms do not depend on which scale was chosen (the
-// backward kernel's differs from the plain version's; below).
+// residues; a pair whose fsc is NEGMASS writes zero terms.  Each row is
+// scaled by a power of two, 2^-floor(log2 max): the product is exact and
+// the scale's log an integer, summed exactly and taken times log 2 where
+// rsf, rsb and the scores need it.  Since the scale is the factor
+// actually applied, the terms do not depend on which one was chosen (the
+// kernels' differ from the plain version's; below).
 //
 // Tables: the Forward filter kernel's packed odds (ops/batch.py:
 // fwd_emis, fwd_trans; S <= 24 slots a lane, so the narrow layout): a
@@ -50,7 +52,9 @@
 //
 // * Forward: fwd.cu's single warp scan, which carries the D chain and E
 //   together, with the row-invariant multipliers computed once per pair
-//   in double; 1/max is an approximate reciprocal.
+//   in double.
+// * The power-of-two scale takes two integer operations from the row's
+//   max, where a reciprocal and a log took a MUFU round trip each.
 // * Backward: the reverse D chain nd[s] = ne + s2[s] + nd[s+1] tDD[s] is
 //   affine in the row's E: nd[s] = ne Wr[s] + Q[s], Wr row-invariant
 //   (Wr[s] = 1 + tDD[s] Wr[s+1]) and Q the chain of the s2 terms alone
@@ -87,6 +91,7 @@
 #define PYHMMER_ROWS_STRIPES(X) X(1) X(2) X(3) X(4) X(6) X(8) X(12) X(16) X(24)
 
 constexpr float TINY = 1e-30f;
+constexpr float LN2 = 0.69314718055994530942f;
 enum { F_B, F_E, F_J, F_C, F_RS, NF };  // forward row planes
 constexpr int NT = 3;                     // term_b, term_e, term_w
 // from this stripe width the default takes the block route while the
@@ -104,6 +109,14 @@ constexpr int rows_warps(int S) {
 // from stripe position j0 of its lane: transitions ta(jj) = (tMM, tIM,
 // tDM, tBM) and tb(jj) = (tMI, tII, tMD, tDD), the (M, I) emission odds
 // of residue x em(x, jj).
+// The scale of a row whose largest value is mx (TINY <= mx < 2^100):
+// 2^-e for e = floor(log2 mx), exact; adds e to the row's log2 scale.
+__device__ __forceinline__ float pow2_scale(float mx, int& log2_scale) {
+  const int e = (__float_as_int(mx) >> 23) - 127;
+  log2_scale += e;
+  return __int_as_float((127 - e) << 23);
+}
+
 template <int S, int SP>
 struct Slots {
   static constexpr bool TR_REGS = SP <= 8;
@@ -199,8 +212,9 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
   __shared__ float4 sCar[2][NWS][32];
   // products of A below this thread, below the thread under it and
   // below the last warp of the lane under this one; alpha of the thread
-  // under this one
+  // under this one; the lane's column of (A, W), held in registers
   float Aown = 1.f, Apred = 1.f, Aq_left = 1.f, alpha_pred = 0.f;
+  float Acol[NWS], Wcol[NWS];
   if constexpr (NW > 1) {
     sAW[wi][lane] = make_float4((float)Ad, (float)Wd, alpha, 0.f);
     __syncthreads();
@@ -212,6 +226,8 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
       if (v == wi) Aown = (float)Ar;
       if (v == NW - 1) Aq = (float)Ar;
       const float4 aw = sAW[v][lane];
+      Acol[v] = aw.x;
+      Wcol[v] = aw.y;
       Wr += Ar * aw.y;
       Ar *= aw.x;
     }
@@ -245,7 +261,8 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
   float m[SP], iv[SP], d[SP];
 #pragma unroll
   for (int jj = 0; jj < SP; ++jj) m[jj] = iv[jj] = d[jj] = 0.f;
-  float xN = 1.f, xB = move, xJ = 0.f, xC = 0.f, lsc = 0.f;
+  float xN = 1.f, xB = move, xJ = 0.f, xC = 0.f;
+  int ls2 = 0;                         // the log2 scale so far
   float cm = 0.f, ci = 0.f, cd = 0.f;  // block route: the slot below
   int par = 0;
 
@@ -316,9 +333,8 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
           if (v == wi) Bown = Br;
           if (v == NW - 1) Bq = Br;
           const float2 bc = sBC[par][v][lane];
-          const float4 aw = sAW[v][lane];
-          Cr = fmaf(Br, aw.y, Cr) + bc.y;
-          Br = fmaf(Br, aw.x, bc.x);
+          Cr = fmaf(Br, Wcol[v], Cr) + bc.y;
+          Br = fmaf(Br, Acol[v], bc.x);
         }
         B = Br;
         C = Cr;
@@ -342,8 +358,8 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
       const float nc = xC * loop + e * 0.5f;
       const float nn = xN * loop;
       const float nb = (nn + nj) * move;
-      const float mx = fmaxf(fmaxf(fmaxf(e, nj), fmaxf(nc, nn)), TINY);
-      const float inv = __fdividef(1.f, mx);
+      const float inv = pow2_scale(
+          fmaxf(fmaxf(fmaxf(e, nj), fmaxf(nc, nn)), TINY), ls2);
       // the D row (what enters the thread added back), then the rescale
 #pragma unroll
       for (int jj = 0; jj < SP; ++jj) {
@@ -367,7 +383,6 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
         ci = first ? 0.f : car.y * inv;
         cd = first ? 0.f : fmaf(xp, alpha_pred, car.z) * inv;
       }
-      lsc -= logf(inv);
       xJ = nj * inv;
       xC = nc * inv;
       xN = nn * inv;
@@ -377,7 +392,7 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
         sE = e * inv;
         sJ = xJ;
         sC = xC;
-        sR = lsc;
+        sR = (float)ls2 * LN2;
       }
       if constexpr (PREFETCH) {
 #pragma unroll
@@ -394,7 +409,7 @@ fwd_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
     }
   }
   if (threadIdx.x % (32 * NWS) == 0)
-    fsc[w] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
+    fsc[w] = xC > 0.f ? logf(xC) + (float)ls2 * LN2 + log_move : NEGMASS;
 }
 
 template <int S, int NW>
@@ -449,6 +464,7 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
   // the map from what enters the lane to the first slot of the thread
   // above this one: A_suf (row-invariant) and, per row, c_suf
   float A_suf = 1.f, w_suf = 0.f;
+  float Acol[NWS], Pcol[NWS];  // the lane's column of (A, Pl)
   if constexpr (NW > 1) {
     sAP[wi][lane] = make_float4((float)Ad, Pl, (float)wd, 0.f);
     __syncthreads();
@@ -460,6 +476,8 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
         w_suf = (float)wr;
       }
       const float4 ap = sAP[v][lane];
+      Acol[v] = ap.x;
+      Pcol[v] = ap.y;
       wr = wr * ap.x + ap.z;
       Ar *= ap.x;
     }
@@ -488,7 +506,8 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
   float m[SP], iv[SP];  // backward M and I rows
 #pragma unroll
   for (int jj = 0; jj < SP; ++jj) m[jj] = iv[jj] = 0.f;
-  float xN = 0.f, xB = 0.f, xJ = 0.f, xC = 0.f, xE = 0.f, lsc = 0.f;
+  float xN = 0.f, xB = 0.f, xJ = 0.f, xC = 0.f, xE = 0.f;
+  int ls2 = 0;  // the log2 scale so far
   // this thread's largest value of the previous row (1 before row L)
   float mprev = 1.f;
   int par = 0;
@@ -558,26 +577,28 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
         sEdge[par][wi][lane] = make_float4(f0, f1, f2, bp);
         sQ[par][wi][lane] = make_float2(qc, mprev);
         __syncthreads();
-        const int ln = min(lane + 1, 31);
-        const float4 up = sEdge[par][0][ln];  // lane + 1's first thread
-        const float up2 = lane < 31 ? up.z : 0.f;
+        // lane + 1's first thread, above this lane's last (none above
+        // lane 31)
+        float4 up = sEdge[par][0][min(lane + 1, 31)];
+        if (lane == 31) up = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 g = up, ea = up;  // the thread above this one; above v
         float cr = 0.f, bs = 0.f, mx = 0.f;
 #pragma unroll
         for (int v = NW - 1; v >= 0; --v) {
-          if (v == wi) c_suf = cr;
+          if (v == wi) {
+            c_suf = cr;
+            g = ea;
+          }
           const float4 ev = sEdge[par][v][lane];
           const float2 qv = sQ[par][v][lane];
-          const float4 ap = sAP[v][lane];
-          const float f2s = v == NW - 1 ? up2 : sEdge[par][v + 1][lane].z;
-          cr = fmaf(cr, ap.x, fmaf(f2s, ap.y, qv.x));
+          cr = fmaf(cr, Acol[v], fmaf(ea.z, Pcol[v], qv.x));
           bs += ev.w;
           mx = fmaxf(mx, qv.y);
+          ea = ev;
         }
         c = cr;
         bp = bs;
         mprev = mx;
-        float4 g = wi < NW - 1 ? sEdge[par][wi + 1][lane] : up;
-        if (wi == NW - 1 && lane == 31) g = make_float4(0.f, 0.f, 0.f, 0.f);
         g0 = g.x;
         g1 = g.y;
         g2 = g.z;
@@ -594,7 +615,7 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
       float Qin = __shfl_down_sync(FULL_MASK, c, 1);  // Q entering the lane
       if (lane == 31) Qin = 0.f;
       Qn = NW > 1 ? fmaf(A_suf, Qin, c_suf) : Qin;
-      const float inv = __fdividef(1.f, fmaxf(mprev, TINY));
+      const float inv = pow2_scale(fmaxf(mprev, TINY), ls2);
       const float B = bp;
       const float nj = xJ * loop + B * move;
       const float nn = xN * loop + B * move;
@@ -617,7 +638,6 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
         iv[jj] = ni * inv;
         ml = fmaxf(ml, m[jj]);
       }
-      lsc -= logf(inv);
       xJ = nj * inv;
       xC = nc * inv;
       xN = nn * inv;
@@ -630,7 +650,7 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
         sN = xN;
         sJ = xJ;
         sC = xC;
-        sR = lsc;
+        sR = (float)ls2 * LN2;
       }
       if constexpr (PREFETCH) {
 #pragma unroll
@@ -654,7 +674,7 @@ bck_rows_kernel(const uint8_t* __restrict__ codes, int Lmax,
     }
   }
   if (threadIdx.x % (32 * NWS) == 0)
-    bsc[w] = xN > 0.f ? logf(xN) + lsc : NEGMASS;
+    bsc[w] = xN > 0.f ? logf(xN) + (float)ls2 * LN2 : NEGMASS;
 }
 
 // The block route's resident pairs on this card: blocks a SM (at the
