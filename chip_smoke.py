@@ -584,8 +584,9 @@ def phase_search(queries, targets, device_rows=False):
     # Forward kernel's)
     tables = {}
     for c in eng._model_cache.values():
-        for name, t in c[3].named_buffers():
-            tables[name] = tables.get(name, 0) + t.numel() * t.element_size()
+        for name, buf in c[3].named_buffers():
+            tables[name] = (tables.get(name, 0)
+                            + buf.numel() * buf.element_size())
     say("search" + suffix, queries=len(queries), targets=len(targets),
         comparisons=ncmp, wall_s=walls, cmp_per_s=[ncmp / w for w in walls],
         max_memory_allocated=peak, table_bytes=tables,

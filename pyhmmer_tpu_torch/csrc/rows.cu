@@ -76,10 +76,9 @@
 //   its lane's column of NW maps; the lane scan is then a warp's as
 //   above.  Buffers alternate by row, so one barrier a row is enough: the
 //   forward's E, the backward's B sum, Q map and (one row late) max all
-//   join there.  It spreads a wide model's slots over more of the SM
-//   and is the default from 12 slots a lane; where a launch has more
-//   pairs than the card holds at once, one warp a pair issues less and
-//   is the default.
+//   join there.  It spreads a wide model's slots over more of the SM,
+//   from 12 slots a lane; where a launch has more pairs than the card
+//   holds at once, one warp a pair issues less and is the default.
 //
 // Padded slots take E like real ones but are cut off from them by the
 // zero transitions of the tables.
@@ -94,16 +93,10 @@ constexpr float TINY = 1e-30f;
 constexpr float LN2 = 0.69314718055994530942f;
 enum { F_B, F_E, F_J, F_C, F_RS, NF };  // forward row planes
 constexpr int NT = 3;                     // term_b, term_e, term_w
-// from this stripe width the default takes the block route while the
-// launch's pairs fit the card at once (at 6 and 8 slots a lane one warp
-// a pair was 8-13% faster on the smoke search's launches; PERF.md)
-constexpr int ROWS_BLOCK_S = 12;
-
-// warps a pair on the block route: 4 slots a thread (3 at S = 6); one
-// below 6 slots a lane, where there is no block route
-constexpr int rows_warps(int S) {
-  return S < 6 ? 1 : S / (S % 4 == 0 ? 4 : 3);
-}
+// warps a pair on the block route, 4 slots a thread; it exists from 12
+// slots a lane (at 6 and 8 one warp a pair was 4-13% faster on every
+// launch of the smoke search and the forced cascade; PERF.md)
+constexpr int rows_warps(int S) { return S < 12 ? 1 : S / 4; }
 
 // One thread's view of a profile's packed odds tables, for its SP slots
 // from stripe position j0 of its lane: transitions ta(jj) = (tMM, tIM,
@@ -717,9 +710,9 @@ static int launch_pass(const void* codes, int Lmax, const void* lens,
   return (int)cudaGetLastError();
 }
 
-// route: 1 one warp a pair, 2 the block route (from 6 slots a lane), 0
-// the default: the block route from ROWS_BLOCK_S slots a lane while the
-// launch's pairs all fit on the card at once, one warp a pair otherwise.
+// route: 1 one warp a pair, 2 the block route (from 12 slots a lane), 0
+// the default: the block route where it exists and the launch's pairs
+// all fit on the card at once, one warp a pair otherwise.
 // The routes add the D->D sums in another order, so a pair's rows may
 // move by a few ulps with the launch's size.
 template <int S>
@@ -729,9 +722,7 @@ static int launch_rows(const void* codes, int Lmax, const void* lens,
                        int Kp, int route, void* frows, void* fsc,
                        void* terms, void* bsc, cudaStream_t stream) {
   constexpr int NW = rows_warps(S);
-  if (route == 0)
-    route = NW > 1 && S >= ROWS_BLOCK_S && npairs <= block_capacity<S>()
-                ? 2 : 1;
+  if (route == 0) route = NW > 1 && npairs <= block_capacity<S>() ? 2 : 1;
   if (route == 1)
     return launch_pass<S, 1>(codes, Lmax, lens, lm, emis, trans, pair_p,
                              pair_row, npairs, Kp, frows, fsc, terms, bsc,

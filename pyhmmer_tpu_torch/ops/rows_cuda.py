@@ -42,8 +42,8 @@ NF = 5
 NT = 3
 TINY = 1e-30
 #: the kernels' code paths (``csrc/rows.cu:launch_rows``): one warp a
-#: pair, or several (from 6 slots a lane); ``auto``, what
-#: :func:`rows_scores` takes, picks the block route from 12 slots a lane
+#: pair, or several (from 12 slots a lane); ``auto``, what
+#: :func:`rows_scores` takes, picks the block route where it exists
 #: while the launch's pairs fit the card at once, so a pair's rows may
 #: move by a few ulps with the launch's size (the routes add the D->D
 #: sums in another order)

@@ -385,7 +385,7 @@ def rows_case(cuda, request):
 def rows_routes(S):
     """The rows kernels' routes that compile at stripe width ``S``
     (``csrc/rows.cu:launch_rows``)."""
-    return ["warp"] + (["block"] if S >= 6 else [])
+    return ["warp"] + (["block"] if S >= 12 else [])
 
 
 def assert_rows_match_plain(args, lengths, pair_row, route):
@@ -414,10 +414,10 @@ def assert_rows_match_plain(args, lengths, pair_row, route):
         assert (kt[g, L + 1:] == 0).all(), route
 
 
-@pytest.mark.parametrize("route", ["auto", "warp", "block"])
-def test_rows_kernels_match_plain(rows_case, route):
-    assert_rows_match_plain(rows_case.args, rows_case.lengths,
-                            rows_case.pair_row, route)
+def test_rows_kernels_match_plain(rows_case):
+    for route in ["auto", *rows_routes(rows_case.pb.S)]:
+        assert_rows_match_plain(rows_case.args, rows_case.lengths,
+                                rows_case.pair_row, route)
 
 
 @pytest.mark.parametrize("S", [1, 2, 3, 4, 6, 8, 12, 16, 24],
@@ -457,8 +457,8 @@ def test_rows_every_width_and_route(cuda, S):
 
 
 def test_rows_route_not_compiled_raises(cuda):
-    """Below 6 slots a lane there is no block route: asking for it raises;
-    nothing falls back."""
+    """Below 12 slots a lane there is no block route: asking for it
+    raises; nothing falls back."""
     hmms = syn.sample_models((60,), seed=5)
     aa = hmms[0].alphabet
     pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, Background(aa), 400)
