@@ -111,12 +111,11 @@ def smoke_module():
     return mod
 
 
-def kernel_ms(call, names, every=False):
+def kernel_ms(call, names):
     """Device ms of one ``call``: of the kernels whose profiler key holds
     one of ``names`` (each kernel's mean over the launches the profiler
     recorded -- it may drop one -- summed over the kernels), and of every
-    kernel of the call; profiled again where it recorded none of them
-    (``every``: where it missed one of ``names``)."""
+    kernel of the call; profiled again where it recorded none of them."""
     import torch
     for _ in range(3):       # again where the profiler recorded none
         with torch.profiler.profile(activities=[
@@ -128,8 +127,7 @@ def kernel_ms(call, names, every=False):
                    e.count) for e in prof.key_averages()]
         mine = {k: us / max(1, n) / 1e3 for k, us, n in events
                 if any(name in k for name in names)}
-        if mine and (not every or all(any(n in k for k in mine)
-                                      for n in names)):
+        if mine:
             break
     return (sum(mine.values()),
             sum(us for _, us, _ in events) / 1e3 / PROFILED, mine)
@@ -284,7 +282,8 @@ def worker_rows(root):
     from pyhmmer_tpu_torch.ops import _build, fwd_cuda, rows_cuda
 
     C = smoke_module()
-    names = ("fwd_rows_kernel<", "bck_rows_kernel<")
+    # fwd_rows_kernel and bck_rows_kernel
+    names = ("rows_kernel<",)
     queries, _, targets, _ = syn.smoke_workload()
     memory = search_memory(queries, targets)
     captured = [(kind, c) for kind, forced in (("main", False),
@@ -314,7 +313,7 @@ def worker_rows(root):
         call = functools.partial(rows_cuda.survivor_rows, pb, dev, pair_p,
                                  pair_b)
         ms = cuda_ms(call, 20)
-        k_ms, d_ms, by_kernel = kernel_ms(call, names, every=True)
+        k_ms, d_ms, by_kernel = kernel_ms(call, names)
         terms, fsc, bsc, order = call()
         # the Forward filter kernel on the same pairs: the forward rows
         # kernel runs its recurrence and also writes the rows
@@ -335,8 +334,7 @@ def worker_rows(root):
                     rows_cuda._scores, dev.codes, dev.lens, dev.lm,
                     pb.fwd_emis, pb.fwd_trans, pp, pr, route)
                 try:
-                    route_ms[route], _, split = kernel_ms(on_route, names,
-                                                          every=True)
+                    route_ms[route], _, split = kernel_ms(on_route, names)
                     route_ms[route + "_by_kernel"] = split
                     err = (on_route()[1] - fsc).abs().max().item()
                     route_ms[route + "_max_abs_diff"] = err
