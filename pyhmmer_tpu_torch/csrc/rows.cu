@@ -94,7 +94,7 @@ constexpr float LN2 = 0.69314718055994530942f;
 enum { F_B, F_E, F_J, F_C, F_RS, NF };  // forward row planes
 constexpr int NT = 3;                     // term_b, term_e, term_w
 // warps a pair on the block route, 4 slots a thread; it exists from 12
-// slots a lane (at 6 and 8 one warp a pair was 4-13% faster on every
+// slots a lane (at 6 and 8 one warp a pair was 4-12% faster on every
 // launch of the smoke search and the forced cascade; PERF.md)
 constexpr int rows_warps(int S) { return S < 12 ? 1 : S / 4; }
 

@@ -1,8 +1,8 @@
-"""Time the MSV, the Forward or the Viterbi kernel of checkouts of the
-PyTorch port in turns.
+"""Time the MSV, the Forward, the Viterbi or the survivor-rows kernels of
+checkouts of the PyTorch port in turns.
 
     python3 scripts/bench_torch_msv.py ROOT_A ROOT_B [ROOT_C ...] \
-        [--kernel msv|fwd|vit] [--out FILE]
+        [--kernel msv|fwd|vit|rows] [--out FILE]
 
 Each root is a checkout holding ``pyhmmer_tpu_torch`` (for example this
 tree and a ``git archive`` of its parent, unpacked into a directory that
@@ -49,8 +49,19 @@ checkout's wrapper has routes (``vit_cuda.ROUTES``, launched through
 that compiles at the launch's width, and the route's largest score
 difference from the default's; ``s3_fetched`` is the stage mark.
 Each run also reports the ``-Xptxas -v`` registers and spills of the
-kernel's instances.  The last line summarises, per launch, each run's
-kernel-only and call ms.
+kernel's instances.
+
+``--kernel rows`` times ``rows_cuda.survivor_rows`` (as the engine calls
+it) at every launch of one smoke search with the rows stage on and of
+one with the cascade forced, then at ``chip_smoke.py``'s two rows parity
+shapes: per launch the pairs, P, Mk, Lmax, every pair's length, the
+call ms, the kernel-only ms (the rows kernels of a call summed, and by
+kernel), the Forward filter kernel's on the same pairs, and each
+route's where the checkout has routes (``rows_cuda.ROUTES``, launched
+through ``rows_cuda._scores``); ``rows_done`` is the stage mark.
+
+The last line summarises, per launch, each run's kernel-only and call
+ms.
 
 The card's name and power limit head the output; the JSON record of
 every run goes to ``--out``.
