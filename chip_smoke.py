@@ -39,13 +39,34 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    search with the rows stage on reports for every query the same
    names, inclusion, domain envelopes and pass counts as one with it
    off, with scores and biases within 2e-3 bits;
-5. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
+5. calibrate: ``Builder(aa, device="cuda").calibrate`` of the 16
+   distinct smoke models (EmN = EvN = 200 random sequences of 200
+   residues, EfN = 200 of 100: HMMER's defaults) must give the evparams
+   the JAX package stored (``tests/data/torch_smoke_evparams.json``):
+   MSV mu, tau and lambda equal as float32, Viterbi mu within 1e-3 bits;
+   exactly one MSV and one Viterbi launch a model, none of Forward (tau
+   comes from the native host Forward, which must be present); the
+   path's MSV and Viterbi launches of the narrowest and the widest model
+   are held against the plain versions as in phase 2;
+6. phmmer: 32 of the targets (the first two in name order planted with
+   each model) as queries against the whole block, once warm, then three
+   timed runs (the counts are read over the last); each query's best hit
+   is itself; for three queries the reported rows equal the sequential
+   oracle's (``Pipeline.search_seq``); the Forward and Viterbi launches
+   with the most pairs of the warm run are held against the plain
+   versions;
+7. jackhmmer: two of those queries, three iterations each through the
+   engine; for the first, every iteration equals ``IterativeSearch``
+   without an engine (rows, MSA size, convergence, iteration);
+8. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
    was imported: the port runs on its own host layers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the kernels' JSON record (launches on the main
 path and per search path, error, times of the first parity shape, its
-bound), and the one before that the card's name and power limit.
+bound), and the one before that the card's name and power limit.  Phases
+3 and 5-7 set every kernel's launch counter to 0 just before the run
+they count and read them just after.
 """
 
 import json
@@ -64,12 +85,13 @@ import numpy as np  # noqa: E402
 
 from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
 from pyhmmer_tpu_torch import engine as E  # noqa: E402
-from pyhmmer_tpu_torch import hmmsearch  # noqa: E402
+from pyhmmer_tpu_torch import hmmsearch, jackhmmer, phmmer  # noqa: E402
 from pyhmmer_tpu_torch.ops import _build  # noqa: E402
 from pyhmmer_tpu_torch.ops import batch as B  # noqa: E402
 from pyhmmer_tpu_torch.ops import (fwd_cuda, msv_cuda, native,  # noqa: E402
                                    rows_cuda, vit_cuda)
-from pyhmmer_tpu_torch.plan7 import Background, Pipeline, Profile  # noqa: E402,E501
+from pyhmmer_tpu_torch.plan7 import (Background, Builder,  # noqa: E402
+                                     Pipeline, Profile)
 
 NEG_LIVE = -1e29
 #: kernel-vs-plain bars (nats): f32 summation order only
@@ -81,6 +103,10 @@ ROWS_SC, ROWS_ATOL, ROWS_RTOL = 2e-3, 3e-4, 2e-3
 #: score and bias bar (bits) of the rows-on search against rows off
 #: (tests/test_engine_pallas.py:63-73,106-109)
 ROWS_SCORE_TOL = 2e-3
+#: Viterbi mu bar (bits) of the card's calibration against the stored
+#: evparams: the f32 Viterbi scores add in another order than the JAX
+#: package's XLA scan
+V_MU_TOL = 1e-3
 #: the least time a kernel could take (bound_ms): the larger of its
 #: operations over the card's peak rate for their type and the bytes of
 #: its inputs (each read once) and outputs (each written once) over the
@@ -149,6 +175,15 @@ PATHS = {False: ("msv", "fwd", "vit"), True: ("msv", "fwd", "vit", "rows")}
 #: (tests/test_torch_engine.py:force_device_cascade)
 FORCED = {"SPECULATE_P1B": -1.0, "HOST_MIN_PAIRS": 0,
           "HOST_PAIRS_PER_ROW": 0.0}
+
+
+def reset_launches():
+    for mod, _, _ in KERNELS.values():
+        mod.launches = 0
+
+
+def read_launches():
+    return {k: mod.launches for k, (mod, _, _) in KERNELS.items()}
 
 
 def say(phase, **kw):
@@ -298,22 +333,126 @@ def main_path_launches(mod, fn, queries, targets, forced=False,
     stage on), in order: (profile batch, bucket, rows, need, pairs) for
     ``fwd_cuda.forward`` and ``vit_cuda.viterbi``, (profile batch,
     bucket, pair_p, pair_b) for ``rows_cuda.survivor_rows``."""
-    calls = []
-    real = getattr(mod, fn)
-
-    def spy(*args):
-        calls.append(args)
-        return real(*args)
-    setattr(mod, fn, spy)
-    try:
+    def run():
         if forced:
             forced_search(queries, targets, device_rows)
         else:
             E.SearchEngine(queries[0].alphabet, device="cuda",
                            device_rows=device_rows).search(queries, targets)
+    return captured([(mod, fn)], run)[1][0]
+
+
+def captured(calls_of, run):
+    """(``run()``, per (module, function name) of ``calls_of`` the
+    arguments of each call made during the run, in order)."""
+    saved = [(mod, fn, getattr(mod, fn)) for mod, fn in calls_of]
+    calls = [[] for _ in calls_of]
+
+    def spy(real, out):
+        def recorded(*args):
+            out.append(args)
+            return real(*args)
+        return recorded
+    for (mod, fn, real), out in zip(saved, calls):
+        setattr(mod, fn, spy(real, out))
+    try:
+        result = run()
     finally:
-        setattr(mod, fn, real)
-    return calls
+        for mod, fn, real in saved:
+            setattr(mod, fn, real)
+    return result, calls
+
+
+def msv_parity(pb, dev, reps_k, reps_p, label, tpu):
+    """The MSV kernel against ``msv_plain`` on every pair of ``pb`` x
+    ``dev`` (ovf identical, dx exact on unflagged pairs, biaslog within
+    its bar), timed in turns."""
+    args = (dev.codes, dev.lens, pb.msv_w16, pb.msv_scal, pb.msv_odds,
+            dev.tjb, dev.p1)
+    k = msv_cuda.msv_scores(*args)
+    p = msv_cuda.msv_plain(*args)
+    torch.cuda.synchronize()
+    shape = f"{label}P{pb.P} x B{dev.B} x L{dev.Lmax} x Mk{32 * pb.S}"
+    if not torch.equal(k[1], p[1]):
+        fail(f"msv ovf differs from the plain version ({shape})")
+    clean = p[1] == 0
+    if not torch.equal(k[0][clean], p[0][clean]):
+        fail(f"msv dx differs from the plain version on an unflagged "
+             f"pair ({shape})")
+    berr = (k[2] - p[2]).abs()
+    bar = 0.25 * (2e-3 + 1e-6 * dev.lens.float().clamp(min=1))
+    if not bool((berr <= bar[None, :]).all()):
+        fail(f"msv biaslog off by {berr.max().item()} ({shape})")
+    ms, plain_ms = in_turns(lambda: msv_cuda.msv_scores(*args),
+                            lambda: msv_cuda.msv_plain(*args), reps_k,
+                            reps_p)
+    cells = float(pb.M.astype(np.float64).sum()
+                  * dev.lengths.astype(np.float64).sum())
+    rec = dict(shape=shape, tpu=tpu, max_abs_err=berr.max().item(), ms=ms,
+               plain_ms=plain_ms, flagged=int((p[1] > 0).sum()),
+               cells=cells,
+               **bound(MSV_OPS * cells / INT16X2_RATE
+                       + BIAS_FLOPS * pb.P * dev.lengths.sum() / F32_RATE,
+                       args, k))
+    say("parity", kernel="msv", **rec,
+        bar="ovf identical; dx exact on unflagged pairs; "
+            "biaslog <= 0.25*(2e-3+1e-6 L)")
+    return rec
+
+
+def tpu_route(name, pb, dev):
+    """The JAX package's route for the Forward ("fwd") or Viterbi
+    ("vit") scores of ``pb`` x ``dev``."""
+    if pb.Mp > 768 or dev.Lmax > 8192:
+        return "batch XLA scan"
+    if name == "vit":
+        return "_vit_pallas"
+    return "_fwd_pallas3" if pb.Mp <= 384 else "_fwd_pallas2"
+
+
+def survivor_args(name, pb, dev, cols, need):
+    """The Forward or Viterbi wrapper's arguments for the columns
+    ``cols`` of ``dev`` where ``need`` is set."""
+    return (dev.codes, dev.lens, dev.lm, getattr(pb, name + "_emis"),
+            getattr(pb, name + "_trans"), cols, need)
+
+
+def survivor_parity(name, args, pairs, M, reps_k, reps_p, label, tpu):
+    """The Forward (``name`` "fwd") or Viterbi ("vit") kernel against its
+    plain version on the wrapper's arguments ``args`` (codes, lens, lm,
+    emis, trans, cols, need) and pair list ``pairs`` (None: the
+    wrapper's own), ``M`` the profiles' lengths; timed in turns."""
+    fn, plain, tol = {"fwd": (fwd_cuda.fwd_scores, fwd_cuda.fwd_plain,
+                              FWD_TOL),
+                      "vit": (vit_cuda.vit_scores, vit_cuda.vit_plain,
+                              VIT_TOL)}[name]
+    codes, lens, lm, emis, trans, cols, need = args
+    k = fn(*args, pairs)
+    p = plain(*args)
+    torch.cuda.synchronize()
+    live = (k > NEG_LIVE) & (p > NEG_LIVE)
+    if not torch.equal(k > NEG_LIVE, p > NEG_LIVE):
+        fail(f"{name}: live pairs differ from the plain version")
+    if not torch.equal(k[~need], p[~need]):
+        fail(f"{name}: pairs outside need were written")
+    err = (k - p)[live].abs().max().item() if live.any() else 0.0
+    if err > tol:
+        fail(f"{name}: kernel vs plain {err} > {tol} nats")
+    ms, plain_ms = in_turns(lambda: fn(*args, pairs), lambda: plain(*args),
+                            reps_k, reps_p)
+    clens = lens[cols].to(torch.float64).cpu()
+    cells = float((torch.as_tensor(M, dtype=torch.float64)[:, None]
+                   * clens[None, :])[need.cpu()].sum())
+    rec = dict(
+        shape=f"{label}P{emis.shape[0]} x n{len(cols)} (need "
+              f"{int(need.sum())}) x L{codes.shape[1]} x "
+              f"Mk{32 * B.packed_stripes(trans)}",
+        tpu=tpu, max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
+        **bound(vit_ops_s(cells) if name == "vit"
+                else FILTER_FLOPS * cells / F32_RATE, (*args, pairs), (k,)))
+    say("parity", kernel=name, **rec,
+        bar=f"|kernel - plain| <= {tol} nats on live pairs")
+    return rec
 
 
 def phase_parity(queries, targets):
@@ -339,39 +478,9 @@ def phase_parity(queries, targets):
     for Mp, Lmax, reps_k, reps_p in ((big, 512, 20, 2), (big, 2048, 20, 2),
                                      (huge, 512, 20, 2),
                                      (huge, max(devs), 3, 1)):
-        pb, dev = pbs[Mp], devs[Lmax]
-        args = (dev.codes, dev.lens, pb.msv_w16, pb.msv_scal,
-                pb.msv_odds, dev.tjb, dev.p1)
-        k = msv_cuda.msv_scores(*args)
-        p = msv_cuda.msv_plain(*args)
-        torch.cuda.synchronize()
-        shape = f"P{pb.P} x B{dev.B} x L{Lmax} x Mk{32 * pb.S}"
-        if not torch.equal(k[1], p[1]):
-            fail(f"msv ovf differs from the plain version ({shape})")
-        clean = p[1] == 0
-        if not torch.equal(k[0][clean], p[0][clean]):
-            fail(f"msv dx differs from the plain version on an unflagged "
-                 f"pair ({shape})")
-        berr = (k[2] - p[2]).abs()
-        bar = 0.25 * (2e-3 + 1e-6 * dev.lens.float().clamp(min=1))
-        if not bool((berr <= bar[None, :]).all()):
-            fail(f"msv biaslog off by {berr.max().item()} ({shape})")
-        ms, plain_ms = in_turns(lambda: msv_cuda.msv_scores(*args),
-                                lambda: msv_cuda.msv_plain(*args), reps_k,
-                                reps_p)
-        cells = float(pb.M.astype(np.float64).sum()
-                      * dev.lengths.astype(np.float64).sum())
-        results["msv"].append(dict(
-            shape=shape,
-            tpu="_msv_pallas2",  # every Mp here is under its row cap
-            max_abs_err=berr.max().item(), ms=ms, plain_ms=plain_ms,
-            flagged=int((p[1] > 0).sum()), cells=cells,
-            **bound(MSV_OPS * cells / INT16X2_RATE
-                    + BIAS_FLOPS * pb.P * dev.lengths.sum() / F32_RATE,
-                    args, k)))
-        say("parity", kernel="msv", **results["msv"][-1],
-            bar="ovf identical; dx exact on unflagged pairs; "
-                "biaslog <= 0.25*(2e-3+1e-6 L)")
+        # every Mp here is under the stacked kernel's row cap
+        results["msv"].append(msv_parity(pbs[Mp], devs[Lmax], reps_k,
+                                         reps_p, "", "_msv_pallas2"))
 
     # Forward / Viterbi: survivor-like columns (every 8th lane) with a
     # 25% need mask; the widest chunk x every lane of the long bucket;
@@ -406,50 +515,12 @@ def phase_parity(queries, targets):
                       f"{label} launch (most pairs of {len(launches)}): ",
                       ("vit",)))
     for pb, dev, cols, need, pairs, reps_k, reps_p, label, kernels in cases:
-        if pb.Mp > 768 or dev.Lmax > 8192:
-            route = "batch XLA scan"
-        else:
-            route = "_pallas3" if pb.Mp <= 384 else "_pallas2"
-        for name, fn, plain, tol, tabs in (
-                ("fwd", fwd_cuda.fwd_scores, fwd_cuda.fwd_plain, FWD_TOL,
-                 ("fwd_emis", "fwd_trans")),
-                ("vit", vit_cuda.vit_scores, vit_cuda.vit_plain, VIT_TOL,
-                 ("vit_emis", "vit_trans"))):
-            if name not in kernels:
-                continue
+        for name in kernels:
             # the main path's launches with the engine's host-built pair
             # list, the others with the wrapper's own
-            args = (dev.codes, dev.lens, dev.lm,
-                    *(getattr(pb, t) for t in tabs), cols, need)
-            k = fn(*args, pairs)
-            p = plain(*args)
-            torch.cuda.synchronize()
-            live = (k > NEG_LIVE) & (p > NEG_LIVE)
-            if not torch.equal(k > NEG_LIVE, p > NEG_LIVE):
-                fail(f"{name}: live pairs differ from the plain version")
-            if not torch.equal(k[~need], p[~need]):
-                fail(f"{name}: pairs outside need were written")
-            err = (k - p)[live].abs().max().item() if live.any() else 0.0
-            if err > tol:
-                fail(f"{name}: kernel vs plain {err} > {tol} nats")
-            ms, plain_ms = in_turns(lambda: fn(*args, pairs),
-                                    lambda: plain(*args), reps_k, reps_p)
-            tpu = route if route.startswith("batch") else (
-                "_fwd" + route if name == "fwd" else "_vit_pallas")
-            lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[
-                cols.cpu()]
-            cells = float((torch.as_tensor(pb.M, dtype=torch.float64)[:, None]
-                           * lens[None, :])[need.cpu()].sum())
-            results[name].append(dict(
-                shape=f"{label}P{pb.P} x n{len(cols)} (need "
-                      f"{int(need.sum())}) x L{dev.Lmax} x Mk{32 * pb.S}",
-                tpu=tpu,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
-                **bound(vit_ops_s(cells) if name == "vit"
-                        else FILTER_FLOPS * cells / F32_RATE, (*args, pairs),
-                        (k,))))
-            say("parity", kernel=name, **results[name][-1],
-                bar=f"|kernel - plain| <= {tol} nats on live pairs")
+            results[name].append(survivor_parity(
+                name, survivor_args(name, pb, dev, cols, need), pairs,
+                pb.M, reps_k, reps_p, label, tpu_route(name, pb, dev)))
 
     # survivor rows: the most populous chunk x the 512 bucket and the
     # chunk with 384 < Mp <= 768 x the 2048 bucket; then every launch of
@@ -564,14 +635,13 @@ def phase_search(queries, targets, device_rows=False):
     walls = []
     for run in range(3):
         if run == 2:
-            for mod, _, _ in KERNELS.values():
-                mod.launches = 0
+            reset_launches()
         t = time.time()
         res = list(hmmsearch(queries, targets, device="cuda",
                              device_rows=device_rows))
         torch.cuda.synchronize()
         walls.append(time.time() - t)
-    launches = {k: mod.launches for k, (mod, _, _) in KERNELS.items()}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     # once more through the engine that hmmsearch builds, for its marks
     eng = E.SearchEngine(queries[0].alphabet, device="cuda",
@@ -687,6 +757,196 @@ def phase_correctness(queries, models, targets, planted, res):
         n_queries=len(res))
 
 
+def phase_calibrate(smi, parity):
+    """Calibrate the 16 distinct smoke models on the card and hold them
+    against the evparams the JAX package stored; then the path's MSV and
+    Viterbi launches of the narrowest and the widest model against the
+    plain versions (appended to ``parity``).  Returns the launches."""
+    if not native.available():
+        fail("calibrate: no native library, so tau would come from the "
+             "Forward kernel fallback")
+    models = syn.sample_models(syn.SMOKE_M, syn.SMOKE_SEED)
+    with open(syn.EVPARAMS) as fh:
+        stored = json.load(fh)
+    aa = models[0].alphabet
+    bg = Background(aa)
+    builder = Builder(aa, device="cuda")
+    walls = []
+
+    def run():
+        for h in models:
+            t = time.time()
+            builder.calibrate(h, bg)
+            walls.append(time.time() - t)
+    reset_launches()
+    _, (msv_calls, vit_calls) = captured(
+        [(msv_cuda, "msv"), (vit_cuda, "vit_scores")], run)
+    launches = read_launches()
+    worst = 0.0
+    for h in models:
+        name = h.name.decode()
+        got = np.asarray(h.evparam, np.float32)
+        want = np.asarray(stored[name]["evparams"], np.float32)
+        for i, what in ((0, "m_mu"), (1, "lambda"), (3, "lambda"),
+                        (4, "tau"), (5, "lambda")):
+            if got[i] != want[i]:
+                fail(f"calibrate {name}: {what} {got[i]} != stored "
+                     f"{want[i]}")
+        diff = abs(float(got[2]) - float(want[2]))
+        if diff > V_MU_TOL:
+            fail(f"calibrate {name}: v_mu off the stored one by {diff} "
+                 f"bits")
+        worst = max(worst, diff)
+    n = len(models)
+    if (launches["msv"], launches["vit"], launches["fwd"],
+            launches["rows"]) != (n, n, 0, 0):
+        fail(f"calibrate: launches {launches}, expected one MSV and one "
+             f"Viterbi a model")
+    say("calibrate", card=smi, models=n, M=[h.M for h in models],
+        wall_s=sum(walls), wall_per_model_s=walls, launches=launches,
+        max_v_mu_diff_bits=worst,
+        bar=f"m_mu, tau, lambda equal as float32; v_mu within {V_MU_TOL} "
+            f"bits")
+    for i in (0, n - 1):
+        label = f"calibrate launch ({models[i].name.decode()}): "
+        pb, seq = msv_calls[i]
+        parity["msv"].append(msv_parity(pb, seq, 20, 1, label,
+                                        "batch._msv_kernel (XLA)"))
+        parity["vit"].append(survivor_parity(
+            "vit", vit_calls[i], None, pb.M, 20, 1, label,
+            "batch._viterbi_kernel (XLA)"))
+    return launches
+
+
+def phmmer_queries(targets, planted, models):
+    """For each distinct model, the first two of its planted targets in
+    name order."""
+    by_name = {s.name: s for s in targets}
+    return [by_name[n] for h in models for n in sorted(planted[h.name])[:2]]
+
+
+def phase_phmmer(smi, queries, targets, planted, models, parity):
+    """phmmer of ``queries`` against the whole block: once warm (its
+    Forward and Viterbi launches recorded), three timed runs (the counts
+    read over the last); every query finds itself first; the builds
+    alone, timed; three queries' rows against the sequential oracle; the
+    warm run's Forward and Viterbi launches with the most pairs against
+    the plain versions."""
+    ncmp = len(queries) * len(targets)
+    t = time.time()
+    _, (fwd_calls, vit_calls) = captured(
+        [(fwd_cuda, "forward"), (vit_cuda, "viterbi")],
+        lambda: list(phmmer(queries, targets, device="cuda")))
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+    walls = []
+    for run in range(3):
+        if run == 2:
+            reset_launches()
+        t = time.time()
+        res = list(phmmer(queries, targets, device="cuda"))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t)
+    launches = read_launches()
+    # each query's calibration adds one MSV and one Viterbi launch
+    if (launches["msv"] <= len(queries) or launches["fwd"] <= 0
+            or launches["rows"]):
+        fail(f"phmmer: launches {launches}")
+    if launches["vit"] != len(queries) + len(vit_calls):
+        fail(f"phmmer: {launches['vit']} Viterbi launches, expected one a "
+             f"query and the warm search's {len(vit_calls)}")
+    for q, th in zip(queries, res):
+        if not th.reported or th.reported[0].name != q.name:
+            fail(f"phmmer {q.name.decode()}: the query is not its own "
+                 f"best hit")
+    aa = targets.alphabet
+    # the part of the wall that builds and calibrates the query models
+    t = time.time()
+    builder, bg = Builder(aa, device="cuda"), Background(aa)
+    for q in queries:
+        builder.copy().build(q, bg)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    picks = (0, len(queries) // 2, len(queries) - 1)
+    t = time.time()
+    ref = [Pipeline(aa).search_seq(queries[i], targets,
+                                   builder=Builder(aa, device="cuda"))
+           for i in picks]
+    oracle_s = time.time() - t
+    for i, th_ref in zip(picks, ref):
+        if rows(res[i]) != rows(th_ref) or res[i].Z != th_ref.Z:
+            fail(f"phmmer {queries[i].name.decode()}: reported rows differ "
+                 f"from the oracle's")
+    share = []
+    for q, th in zip(queries, res):
+        model = next(h.name for h in models if q.name in planted[h.name])
+        others = planted[model] - {q.name}
+        found = others & {h.name for h in th.reported}
+        share.append(len(found) / len(others))
+    say("phmmer", card=smi, queries=len(queries), targets=len(targets),
+        comparisons=ncmp, warm_s=warm_s, wall_s=walls,
+        cmp_per_s=[ncmp / w for w in walls], build_s=build_s,
+        launches=launches,
+        oracle_queries=[queries[i].name.decode() for i in picks],
+        oracle_M=[len(queries[i]) for i in picks], oracle_s=oracle_s,
+        reported=[len(th.reported) for th in res],
+        planted_share_mean=float(np.mean(share)), planted_share=share)
+    for name, calls in (("fwd", fwd_calls), ("vit", vit_calls)):
+        if not calls:
+            continue
+        pb, dev, cols, need, pairs = max(calls, key=lambda c: int(c[3].sum()))
+        parity[name].append(survivor_parity(
+            name, survivor_args(name, pb, dev, cols, need), pairs, pb.M, 20,
+            1, f"phmmer launch (most pairs of {len(calls)}): ",
+            tpu_route(name, pb, dev)))
+    return launches
+
+
+def phase_jackhmmer(smi, queries, targets):
+    """jackhmmer of the first two queries, three iterations each through
+    the engine; the first query's iterations against ``IterativeSearch``
+    without an engine."""
+    aa = targets.alphabet
+    picks = queries[:2]
+    reset_launches()
+    t = time.time()
+    out = list(jackhmmer(picks, targets, device="cuda", max_iterations=3,
+                         checkpoints=True))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = read_launches()
+    if launches["msv"] <= 0 or launches["fwd"] <= 0 or launches["rows"]:
+        fail(f"jackhmmer: launches {launches}")
+    t = time.time()
+    search = Pipeline(aa, incE=0.001, incdomE=0.001).iterate_seq(
+        picks[0], targets,
+        builder=Builder(aa, architecture="hand", device="cuda"))
+    ref = []
+    for _ in range(3):
+        try:
+            ref.append(next(search))
+        except StopIteration:
+            break
+        if ref[-1].converged:
+            break
+    oracle_s = time.time() - t
+    if len(out[0]) != len(ref):
+        fail(f"jackhmmer: {len(out[0])} iterations, the oracle "
+             f"{len(ref)}")
+    for g, r in zip(out[0], ref):
+        if (rows(g.hits), len(g.msa), g.converged, g.iteration) != (
+                rows(r.hits), len(r.msa), r.converged, r.iteration):
+            fail(f"jackhmmer iteration {g.iteration} differs from "
+                 f"IterativeSearch without an engine")
+    say("jackhmmer", card=smi, queries=[q.name.decode() for q in picks],
+        targets=len(targets), iterations=[len(o) for o in out],
+        msa_sizes=[[len(r.msa) for r in o] for o in out],
+        reported=[[len(r.hits.reported) for r in o] for o in out],
+        converged=[o[-1].converged for o in out], wall_s=wall,
+        launches=launches, oracle_iterations=len(ref), oracle_s=oracle_s)
+    return launches
+
+
 def padded_width(queries, h):
     """The padded model width of the engine chunk holding ``h``."""
     qi = next(i for i, q in enumerate(queries) if q is h)
@@ -717,6 +977,12 @@ def main():
     launches = dict(launches_off, rows=launches_on["rows"])
     phase_correctness(queries, models, targets, planted, res)
     phase_rows_correctness(queries, targets)
+    by_path = {"rows_off": launches_off, "rows_on": launches_on,
+               "calibrate": phase_calibrate(smi, parity)}
+    seqs = phmmer_queries(targets, planted, models)
+    by_path["phmmer"] = phase_phmmer(smi, seqs, targets, planted, models,
+                                     parity)
+    by_path["jackhmmer"] = phase_jackhmmer(smi, seqs, targets)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "pyhmmer_tpu"))
     if foreign:
@@ -728,8 +994,8 @@ def main():
         main_case = parity[name][0]
         record.append({"name": name, "route": "cuda", "source": src,
                        "replaces": replaces, "launches": launches[name],
-                       "launches_by_path": {"rows_off": launches_off[name],
-                                            "rows_on": launches_on[name]},
+                       "launches_by_path": {path: n[name]
+                                            for path, n in by_path.items()},
                        "max_abs_err": max(r["max_abs_err"]
                                           for r in parity[name]),
                        "ms": main_case["ms"],

@@ -13,12 +13,13 @@ Everything is drawn with numpy's ``default_rng`` from a seed:
 The smoke workload is a Pfam-like query stack against a proteome: the 16
 distinct models of ``SMOKE_M``, replicated by ``bench.py``'s length
 weights to about 240 queries, against 4,000 targets (median length 280)
-plus a 9,000- and a 35,000-residue target.  E-value parameters cannot be
-calibrated without JAX yet, so ``scripts/make_torch_smoke_evparams.py``
-calibrates the distinct models once and stores them, with a checksum of
-each model, in ``tests/data/torch_smoke_evparams.json``;
-:func:`smoke_models` refuses models whose checksum differs (a different
-numpy random stream).
+plus a 9,000- and a 35,000-residue target.  The distinct models' E-value
+parameters are stored, with a checksum of each model, in
+``tests/data/torch_smoke_evparams.json``, as the JAX package's
+``Builder.calibrate`` computed them; the port's ``Builder`` reproduces
+them (``scripts/make_torch_smoke_evparams.py`` compares the two,
+``chip_smoke.py`` on the card), and :func:`smoke_models` refuses models
+whose checksum differs (a different numpy random stream).
 """
 
 from __future__ import annotations

@@ -1,10 +1,16 @@
-"""The port's copy of the Easel layer it needs: alphabets, sequences and
-sequence files (``pyhmmer_tpu/easel/{alphabet,sequence,seqfile}.py``)."""
+"""The port's copy of the Easel layer it needs: alphabets, sequences,
+sequence files, alignments, bit fields and the random number generator
+(``pyhmmer_tpu/easel/{alphabet,sequence,seqfile,msa,containers,random}.py``;
+of ``containers``, ``Bitfield`` only)."""
 
 from .alphabet import Alphabet
+from .containers import Bitfield
+from .msa import MSA, DigitalMSA, TextMSA
+from .random import Randomness
 from .sequence import (DigitalSequence, DigitalSequenceBlock, TextSequence,
                        TextSequenceBlock)
 from .seqfile import SequenceFile
 
-__all__ = ["Alphabet", "DigitalSequence", "DigitalSequenceBlock",
+__all__ = ["Alphabet", "Bitfield", "MSA", "DigitalMSA", "TextMSA",
+           "Randomness", "DigitalSequence", "DigitalSequenceBlock",
            "TextSequence", "TextSequenceBlock", "SequenceFile"]

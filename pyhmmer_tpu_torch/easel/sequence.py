@@ -220,6 +220,18 @@ class DigitalSequence(Sequence):
             return self
         return DigitalSequence(self.alphabet, sequence=rc, **self._meta())
 
+    @classmethod
+    def sample(cls, alphabet: Alphabet, max_length: int,
+               randomness=None) -> "DigitalSequence":
+        """Sample a random digital sequence of length at most
+        ``max_length`` (reference ``DigitalSequence.sample``)."""
+        from .random import Randomness
+        if randomness is None or isinstance(randomness, int):
+            randomness = Randomness(randomness or 0)
+        n = 1 + randomness._rng.randint(0, max(1, max_length))
+        codes = randomness._rng.randint(0, alphabet.K, n).astype(np.uint8)
+        return cls(alphabet, name=b"random", sequence=codes)
+
 
 class SequenceBlock:
     """List-like container of sequences (reference ``easel.pyx:8110-8816``)."""

@@ -39,6 +39,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .easel.alphabet import Alphabet
 from .easel.sequence import DigitalSequenceBlock
 from .ops import batch as B
@@ -77,19 +78,6 @@ ROWS_MAX_L = 2048
 ROWS_MAX_MP = 768
 #: buckets with a longer Lmax launch their MSV scans on side streams
 LONG_BUCKET = 2048
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist (the
-    engine never moves to the CPU by itself)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {dev} requested but torch.cuda.is_available() is "
-            f"False; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 class _Buckets:
@@ -490,12 +478,10 @@ class SearchEngine:
         def gate_pair(ci, bi, dx_raw, ovf_raw, biaslog_raw):
             st = states[ci]
             idx, codes, lengths, dev = buckets.buckets[bi]
-            dx = dx_raw.astype(np.float64)
             valid_b = lengths > 0
             L = np.maximum(lengths.astype(np.float64), 1.0)
             nullsc = dev.nullsc_host
-            usc = (dx - dev.tjbu_host[None, :]) / st.pb.scale_b - 3.0
-            usc[ovf_raw > 0] = np.inf
+            usc = B.msv_nats(dx_raw, ovf_raw, dev.tjbu_host, st.pb.scale_b)
             pass1 = (usc - nullsc[None, :] >= st.thr1) & valid_b[None, :]
             for pi, pli in enumerate(st.pipelines):
                 pli.n_past_msv += int(pass1[pi].sum())

@@ -1,18 +1,33 @@
-"""Application layer of the port: ``hmmsearch`` through the PyTorch
-engine (the port of ``pyhmmer_tpu/hmmer/__init__.py``'s hmmsearch)."""
+"""Application layer of the port: ``hmmsearch``, ``phmmer`` and
+``jackhmmer`` through the PyTorch engine (the port of
+``pyhmmer_tpu/hmmer/__init__.py``'s functions of those names).  phmmer
+and jackhmmer build their query models with the port's
+:class:`~pyhmmer_tpu_torch.plan7.builder.Builder`, whose E-value
+calibration runs on the same device as the search."""
 
 from __future__ import annotations
 
 from typing import Iterator, Optional
 
+from .._device import resolve_device
 from ..easel.alphabet import Alphabet
+from ..easel.msa import DigitalMSA
 from ..easel.seqfile import SequenceFile
-from ..easel.sequence import DigitalSequenceBlock
-from ..engine import SearchEngine, resolve_device
+from ..easel.sequence import DigitalSequence, DigitalSequenceBlock
+from ..engine import SearchEngine
+from ..plan7.background import Background
+from ..plan7.builder import Builder
 from ..plan7.hmm import HMM
+from ..plan7.pipeline import Pipeline
 from ..plan7.results import TopHits
 
-__all__ = ["hmmsearch"]
+__all__ = ["hmmsearch", "phmmer", "jackhmmer"]
+
+#: jackhmmer sends each round's search to the engine from this many
+#: targets up; smaller target sets take the sequential pipeline
+#: (identical results; the JAX package's threshold,
+#: ``pyhmmer_tpu/hmmer/__init__.py:382``)
+JACKHMMER_ENGINE_MIN_TARGETS = 64
 
 
 # _target_block and _query_list: pyhmmer_tpu/hmmer/__init__.py:40-59,
@@ -95,3 +110,90 @@ def _hmmsearch_streamed(queries, seqfile: SequenceFile, alphabet, device,
         if callback is not None:
             callback(q, len(queries))
     return iter(merged)
+
+
+def phmmer(queries, sequences, *, device="cuda", callback=None,
+           builder: Optional[Builder] = None, device_rows: bool = False,
+           **options) -> Iterator[TopHits]:
+    """Search query sequence(s) (or digital MSAs) against a sequence
+    database; yields one :class:`TopHits` per query, in query order
+    (``pyhmmer_tpu.hmmer.phmmer``).  Each query's model is built and
+    calibrated by a copy of ``builder`` (default ``Builder(alphabet,
+    device=device)``) and all models are searched in one
+    :class:`SearchEngine` call; ``device`` and ``device_rows`` as in
+    :func:`hmmsearch`."""
+    dev = resolve_device(device)
+    if isinstance(queries, (DigitalSequence, DigitalMSA)):
+        queries = [queries]
+    queries = list(queries)
+    if not queries:
+        return iter(())
+    alphabet = queries[0].alphabet
+    block = _target_block(sequences)
+    bg = Background(alphabet)
+    bld = builder or Builder(alphabet, device=dev)
+    hmms = []
+    for q in queries:
+        if isinstance(q, DigitalMSA):
+            hmm, _, _ = bld.copy().build_msa(q, bg)
+        else:
+            hmm, _, _ = bld.copy().build(q, bg)
+        hmms.append(hmm)
+    eng = SearchEngine(alphabet, device=dev, device_rows=device_rows,
+                       **options)
+    return iter(eng.search(hmms, block, callback=callback))
+
+
+def jackhmmer(queries, sequences, *, max_iterations: int = 5,
+              select_hits=None, checkpoints: bool = False, device="cuda",
+              callback=None, builder: Optional[Builder] = None,
+              device_rows: bool = False, **options):
+    """Iterative profile search (``pyhmmer_tpu.hmmer.jackhmmer``); yields
+    per query its last :class:`IterationResult`, or with
+    ``checkpoints=True`` the list of every iteration's.  Default
+    inclusion thresholds incE = incdomE = 0.001; ``hand`` architecture
+    builder (default ``Builder(alphabet, architecture="hand",
+    device=device)``).  From :data:`JACKHMMER_ENGINE_MIN_TARGETS` targets
+    up each round searches through a :class:`SearchEngine` on
+    ``device``; ``device`` and ``device_rows`` as in :func:`hmmsearch`."""
+    dev = resolve_device(device)
+    if isinstance(queries, DigitalSequence):
+        queries = [queries]
+    queries = list(queries)
+    if not queries:
+        return iter(())
+    alphabet = queries[0].alphabet
+    block = _target_block(sequences)
+    options.setdefault("incE", 0.001)
+    options.setdefault("incdomE", 0.001)
+    bld = builder or Builder(alphabet, architecture="hand", device=dev)
+
+    def run_one(q):
+        pli = Pipeline(alphabet, **options)
+        search = pli.iterate_seq(q, block, builder=bld.copy(),
+                                 select_hits=select_hits)
+        # a new engine per query: the model changes every iteration, so
+        # the engine's profile cache would only churn across queries
+        if len(block) >= JACKHMMER_ENGINE_MIN_TARGETS:
+            search.engine = SearchEngine(alphabet, device=dev,
+                                         device_rows=device_rows,
+                                         **options)
+        results = []
+        last = None
+        for _ in range(max_iterations):
+            try:
+                last = next(search)
+            except StopIteration:
+                break
+            results.append(last)
+            if last.converged:
+                break
+        return results if checkpoints else last
+
+    def gen():
+        for q in queries:
+            out = run_one(q)
+            if callback is not None:
+                callback(q, len(queries))
+            yield out
+    return gen()

@@ -352,6 +352,16 @@ def block_from_arrays(d: dict) -> DigitalSequenceBlock:
                               d["descriptions"], d["sequences"])])
 
 
+def msv_nats(dx, ovf, tjbu: np.ndarray, scale_b: float) -> np.ndarray:
+    """MSV scores in nats, float64 [P, B], from the MSV kernel's ``dx``
+    and ``ovf`` [P, B] (host arrays), the lanes' ``tjb_units`` [B] and
+    the batch's ``scale_b``: ``(dx - tjbu) / scale_b - 3``, inf where the
+    uint8 DP overflowed (``pyhmmer_tpu/ops/batch.py:msv_scores``)."""
+    usc = (np.asarray(dx, np.float64) - tjbu[None, :]) / scale_b - 3.0
+    usc[np.asarray(ovf) > 0] = np.inf
+    return usc
+
+
 class SeqDevice:
     """One length bucket of target sequences on ``device``.
 

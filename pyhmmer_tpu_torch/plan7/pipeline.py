@@ -513,6 +513,24 @@ class Pipeline:
         hits.threshold()
         return hits
 
+    def search_seq(self, query: DigitalSequence,
+                   sequences: Iterable[DigitalSequence],
+                   builder=None) -> TopHits:
+        """Search a single sequence query (phmmer; builds a profile on the
+        fly, ``Pipeline.search_seq`` -> ``p7_SingleBuilder``)."""
+        from .builder import Builder
+        builder = builder or Builder(self.alphabet)
+        hmm, _, _ = builder.build(query, self.background)
+        return self.search_hmm(hmm, sequences)
+
+    def search_msa(self, query, sequences: Iterable[DigitalSequence],
+                   builder=None) -> TopHits:
+        """Search an MSA query (``Pipeline.search_msa`` -> ``p7_Builder``)."""
+        from .builder import Builder
+        builder = builder or Builder(self.alphabet)
+        hmm, _, _ = builder.build_msa(query, self.background)
+        return self.search_hmm(hmm, sequences)
+
     def scan_seq(self, query: DigitalSequence, hmms) -> TopHits:
         """Scan a sequence against a profile database
         (``Pipeline.scan_seq``, hot loop ``plan7.pyx:6405-6458``).
@@ -559,6 +577,23 @@ class Pipeline:
         else:
             hits.threshold()
         return hits
+
+    def iterate_seq(self, query: DigitalSequence, sequences, builder=None,
+                    select_hits=None):
+        """Start a jackhmmer-style iterative search from a query sequence."""
+        from .iteration import IterativeSearch
+        from .builder import Builder
+        builder = builder or Builder(self.alphabet, architecture="hand")
+        return IterativeSearch(self, builder, query, sequences,
+                               select_hits=select_hits, from_msa=False)
+
+    def iterate_hmm(self, query: HMM, sequences, builder=None,
+                    select_hits=None):
+        from .iteration import IterativeSearch
+        from .builder import Builder
+        builder = builder or Builder(self.alphabet, architecture="hand")
+        return IterativeSearch(self, builder, query, sequences,
+                               select_hits=select_hits, from_msa=False)
 
     def arguments(self) -> List[str]:
         """Serialize configuration to HMMER CLI flags

@@ -438,3 +438,8 @@ class TopHits:
 
     # --- output -----------------------------------------------------------------
 
+    def to_msa(self, alphabet, sequences=None, traces=None, trim=False,
+               digitize=False, all_consensus_cols=False):
+        from .tracealign import tophits_to_msa
+        return tophits_to_msa(self, alphabet, sequences, traces, trim,
+                              digitize, all_consensus_cols)

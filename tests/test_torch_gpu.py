@@ -498,3 +498,43 @@ def test_engine_rows_stage_on_cuda(cuda, monkeypatch):
         for ha, hb in zip(a.reported, b.reported):
             assert abs(ha.score - hb.score) < 2e-3
             assert abs(ha.bias - hb.bias) < 2e-3
+
+
+@pytest.mark.parametrize("M", [50, 300, 700, 1500])
+def test_calibrate_on_card_matches_cpu(cuda, M):
+    """``Builder.calibrate`` on the card (one MSV and one Viterbi launch,
+    P = 1 x 200 lanes, the Viterbi loop cost zeroed) against the same on
+    the CPU (the plain versions): MSV mu, tau and lambda equal as
+    float32, Viterbi mu within 1e-3 bits."""
+    from pyhmmer_tpu_torch.plan7 import Builder
+    h = syn.sample_models((M,), seed=M)[0]
+    aa = h.alphabet
+    on_card, on_cpu = h.copy(), h.copy()
+    before = (msv_cuda.launches, vit_cuda.launches, fwd_cuda.launches)
+    Builder(aa, device=cuda).calibrate(on_card, Background(aa))
+    after = (msv_cuda.launches, vit_cuda.launches, fwd_cuda.launches)
+    assert after[0] == before[0] + 1 and after[1] == before[1] + 1
+    Builder(aa, device="cpu").calibrate(on_cpu, Background(aa))
+    got = np.asarray(on_card.evparam, np.float32)
+    want = np.asarray(on_cpu.evparam, np.float32)
+    np.testing.assert_array_equal(got[[0, 1, 3, 4, 5]], want[[0, 1, 3, 4, 5]])
+    assert abs(float(got[2]) - float(want[2])) <= 1e-3
+
+
+def test_phmmer_on_card_matches_cpu(cuda):
+    """phmmer of two planted targets against a small block: the same
+    reported rows on the card and on the CPU."""
+    import pyhmmer_tpu_torch as pt
+    models = syn.smoke_models()[2:4]
+    targets, planted = syn.make_targets(models, 200, seed=5)
+    by_name = {s.name: s for s in targets}
+    queries = [by_name[sorted(planted[h.name])[0]] for h in models]
+
+    def rows(th):
+        return [(h.name, round(h.score, 4), float(f"{h.evalue:.4g}"),
+                 h.included, len(h.domains)) for h in th.reported]
+    on_card = list(pt.phmmer(queries, targets, device=cuda))
+    on_cpu = list(pt.phmmer(queries, targets, device="cpu"))
+    assert [rows(th) for th in on_card] == [rows(th) for th in on_cpu]
+    for q, th in zip(queries, on_card):
+        assert th.reported[0].name == q.name

@@ -4,8 +4,13 @@ package's, of which they are copies: the same seeded models, profiles,
 backgrounds, quantization and reference DP give identical arrays; the two
 native libraries, loaded side by side in this process, give identical
 outputs; the port's sequential ``Pipeline`` reports what the JAX
-package's oracle ``hmmsearch`` reports.  And no module of the port, nor
-``chip_smoke.py``, imports the JAX package or JAX.
+package's oracle ``hmmsearch`` reports; the copied statistics, priors,
+alignments, bit fields, random numbers, trace alignment and iterative
+search give what the originals give, and each copied module's code is
+the original's but for imports, docstrings and the methods the port
+leaves out or changes (``COPIES``).  And no module of the port, nor
+``chip_smoke.py`` or ``scripts/make_torch_smoke_evparams.py``, imports
+the JAX package or JAX.
 
 The helpers here carry models and target blocks between the packages
 through the port's array form (``ops.batch.hmm_arrays`` /
@@ -13,24 +18,36 @@ through the port's array form (``ops.batch.hmm_arrays`` /
 
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
 
 from pyhmmer_tpu import hmmer as jax_hmmer
+from pyhmmer_tpu.easel import containers as jax_containers
+from pyhmmer_tpu.easel import msa as jax_msa
+from pyhmmer_tpu.easel import random as jax_random
 from pyhmmer_tpu.easel.alphabet import Alphabet as JAlphabet
 from pyhmmer_tpu.easel.sequence import DigitalSequence as JSequence
 from pyhmmer_tpu.easel.sequence import DigitalSequenceBlock as JBlock
 from pyhmmer_tpu.ops import native as jax_native
 from pyhmmer_tpu.ops import quantize as jax_quantize
 from pyhmmer_tpu.ops import reference as jax_ref
+from pyhmmer_tpu.plan7 import fitting as jax_fitting
+from pyhmmer_tpu.plan7 import priors as jax_priors
+from pyhmmer_tpu.plan7 import tracealign as jax_tracealign
 from pyhmmer_tpu.plan7.background import Background as JBackground
+from pyhmmer_tpu.plan7.builder import Builder as JBuilder
 from pyhmmer_tpu.plan7.hmm import HMM as JHMM
+from pyhmmer_tpu.plan7.pipeline import Pipeline as JPipeline
 from pyhmmer_tpu.plan7.profile import Profile as JProfile
 from pyhmmer_tpu_torch import _synthetic as syn
+from pyhmmer_tpu_torch.easel import (Alphabet, DigitalSequence, containers,
+                                     msa, random)
 from pyhmmer_tpu_torch.ops import batch as TB
 from pyhmmer_tpu_torch.ops import native, quantize, reference
-from pyhmmer_tpu_torch.plan7 import Background, Pipeline, Profile
+from pyhmmer_tpu_torch.plan7 import (Background, Builder, Pipeline, Profile,
+                                     fitting, priors, tracealign)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = (30, 90, 260)
@@ -285,11 +302,231 @@ def imported_modules(path):
 
 
 def test_port_never_imports_the_jax_package():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "make_torch_smoke_evparams.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "pyhmmer_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
-    assert len(paths) > 25
+    assert len(paths) > 35
+    for new in ("_device", "plan7/builder", "plan7/fitting", "plan7/priors",
+                "plan7/tracealign", "plan7/iteration", "easel/msa",
+                "easel/containers", "easel/random"):
+        assert os.path.join(ROOT, "pyhmmer_tpu_torch", new + ".py") in paths
     bad = [(os.path.relpath(p, ROOT), m) for p in paths
            for m in imported_modules(p)
            if m.split(".")[0] in ("pyhmmer_tpu", "jax", "jaxlib")]
     assert not bad, bad
+
+
+#: each copied module (path under both packages) with the definitions the
+#: port leaves out (their imports reach modules it does not copy, or
+#: nothing of the port uses them) and those it changes on purpose
+COPIES = {
+    "easel/alphabet": ((), ()),
+    "easel/sequence": (("DigitalSequence.translate",
+                        "DigitalSequenceBlock.translate"), ()),
+    "easel/msa": (("MSA.write",), ()),
+    "easel/containers": (("KeyHash", "Vector", "VectorD", "VectorF",
+                          "VectorI", "VectorU8", "Matrix", "MatrixD",
+                          "MatrixF", "MatrixI", "MatrixU8"), ()),
+    "easel/random": ((), ()),
+    "plan7/fitting": ((), ()),
+    "plan7/priors": ((), ()),
+    "plan7/builder": ((), ("Builder.__init__", "Builder.copy",
+                           "Builder.calibrate")),
+    "plan7/tracealign": ((), ()),
+    "plan7/iteration": ((), ()),
+    "plan7/pipeline": ((), ()),
+    "plan7/results": (("TopHits.write",), ()),
+    "plan7/domaindef": ((), ()),
+    "plan7/evalues": ((), ()),
+    "plan7/background": ((), ()),
+    "plan7/hmm": (("HMM.write",), ()),
+    "plan7/profile": (("Profile.to_optimized",), ()),
+    "plan7/views": (("_ParamVector.as_vector",), ()),
+    "plan7/ensemble": ((), ()),
+}
+
+
+class _NoDocstrings(ast.NodeTransformer):
+    def _strip(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    visit_FunctionDef = visit_AsyncFunctionDef = visit_ClassDef = _strip
+
+
+def definitions(path):
+    """{name: AST dump without docstrings} of a module's functions, the
+    methods (``Class.method``) and header of its classes and its other
+    statements, leaving out imports, the docstring and ``__all__``."""
+    tree = _NoDocstrings().visit(ast.parse(open(path).read(), path))
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            continue
+        if (isinstance(node, ast.Expr) and isinstance(node.value,
+                                                       ast.Constant)):
+            continue
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            continue
+        if isinstance(node, ast.ClassDef):
+            body, node.body = node.body, []
+            out[node.name] = ast.dump(node)
+            for item in body:
+                if isinstance(item, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out[f"{node.name}.{item.name}"] = ast.dump(item)
+                elif not isinstance(item, ast.Pass):
+                    out[f"{node.name}: {ast.unparse(item)}"] = ""
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = ast.dump(node)
+        else:
+            out[ast.unparse(node)] = ""
+    return out
+
+
+@pytest.mark.parametrize("module", sorted(COPIES))
+def test_copied_code_equals_jax(module):
+    """The port's copy holds the original's definitions, each with the
+    same code (imports and docstrings aside), but those it leaves out or
+    changes on purpose."""
+    left_out, changed = COPIES[module]
+    got = definitions(os.path.join(ROOT, "pyhmmer_tpu_torch", module + ".py"))
+    want = definitions(os.path.join(ROOT, "pyhmmer_tpu", module + ".py"))
+    dropped = {k for k in want
+               if k in left_out or re.split("[.:]", k)[0] in left_out}
+    assert set(got) == set(want) - dropped
+    differ = sorted(k for k in got if got[k] != want[k])
+    assert differ == sorted(changed)
+
+
+def test_fitting_equals_jax():
+    rng = np.random.default_rng(31)
+    x = 3.0 - np.log(-np.log(rng.uniform(size=500))) / 0.7
+    for name, args in (("gumbel_fit_complete", (x,)),
+                       ("gumbel_fit_complete_loc", (x, 0.7)),
+                       ("exp_fit_complete", (x[:40],))):
+        assert getattr(fitting, name)(*args) == \
+            getattr(jax_fitting, name)(*args), name
+
+
+@pytest.mark.parametrize("scheme", ["alphabet", "laplace"])
+def test_priors_equal_jax(models, scheme):
+    aa, jaa = models[0].alphabet, JAlphabet.amino()
+    prior = priors.for_alphabet(aa, scheme)
+    jprior = jax_priors.for_alphabet(jaa, scheme)
+    rng = np.random.default_rng(32)
+    counts = rng.gamma(0.5, 3.0, (12, aa.K))
+    np.testing.assert_array_equal(priors.match_posterior(counts, prior),
+                                  jax_priors.match_posterior(counts,
+                                                             jprior))
+    h, jh = models[0].copy(), jax_hmm(models[0])
+    for m in (h, jh):
+        m.mat[1:] *= 5.0
+        m.ins *= 2.0
+        m.t *= 3.0
+    priors.parameter_estimation(h, prior)
+    jax_priors.parameter_estimation(jh, jprior)
+    for name in ("mat", "ins", "t"):
+        np.testing.assert_array_equal(getattr(h, name), getattr(jh, name),
+                                      name)
+
+
+def port_and_jax_msa(codes):
+    out = []
+    for mod, aa in ((msa, Alphabet.amino()), (jax_msa, JAlphabet.amino())):
+        m = mod.DigitalMSA(aa, name=b"aln")
+        m.names = [b"s%d" % i for i in range(len(codes))]
+        m.codes = codes.copy()
+        out.append(m)
+    return out
+
+
+def test_msa_equals_jax(lanes):
+    codes, lengths = lanes
+    aln = codes[:12, :80].copy()
+    gap = JAlphabet.amino().gap_code
+    aln[:, 70:] = gap
+    aln[3, :50] = gap
+    aln[aln == JAlphabet.amino().nonresidue_code] = gap
+    m, jm = port_and_jax_msa(aln)
+    np.testing.assert_array_equal(m.compute_weights(), jm.compute_weights())
+    assert list(m.mark_fragments(0.7)) == list(jm.mark_fragments(0.7))
+    assert m.checksum() == jm.checksum()
+    assert m.textize().rows == jm.textize().rows
+    assert m.identity_filter(0.3).names == jm.identity_filter(0.3).names
+    sel, jsel = (x.select(sequences=[0, 3, 5], columns=range(10, 60))
+                 for x in (m, jm))
+    np.testing.assert_array_equal(sel.codes, jsel.codes)
+    for a, b in zip(m.sequences_as_unaligned(), jm.sequences_as_unaligned()):
+        np.testing.assert_array_equal(a.sequence, b.sequence)
+
+
+def test_bitfield_and_randomness_equal_jax(models):
+    bits = [True, False, True, True, False]
+    b, jb = containers.Bitfield(bits), jax_containers.Bitfield(bits)
+    for x in (b, jb):
+        x.toggle(1)
+        x[-1] = True
+    assert list(b) == list(jb) and b.count() == jb.count()
+    r, jr = random.Randomness(42), jax_random.Randomness(42)
+    assert [r.random() for _ in range(5)] == [jr.random() for _ in range(5)]
+    r2, jr2 = r.copy(), jr.copy()
+    assert r2.normalvariate(1.0, 2.0) == jr2.normalvariate(1.0, 2.0)
+    a = DigitalSequence.sample(models[0].alphabet, 60, random.Randomness(5))
+    ja = JSequence.sample(JAlphabet.amino(), 60, jax_random.Randomness(5))
+    np.testing.assert_array_equal(a.sequence, ja.sequence)
+
+
+def test_tracealign_equals_jax(models, lanes):
+    """``TraceAligner`` on a sampled model's consensus and planted lanes,
+    then the MSA of the traces."""
+    codes, lengths = lanes
+    k = len(models)
+    h, jh = models[1], jax_hmm(models[1])
+    aa, jaa = h.alphabet, JAlphabet.amino()
+    picks = [1, k + 1, 2 * k + 3]
+    seqs = [DigitalSequence(aa, name=b"l%d" % b,
+                            sequence=codes[b, : lengths[b]]) for b in picks]
+    jseqs = [JSequence(jaa, name=b"l%d" % b, sequence=codes[b, : lengths[b]])
+             for b in picks]
+    ta, jta = tracealign.TraceAligner(), jax_tracealign.TraceAligner()
+    tr, jtr = ta.compute_traces(h, seqs), jta.compute_traces(jh, jseqs)
+    for t, jt in zip(tr, jtr):
+        assert (t.states, t.k, t.i) == (jt.states, jt.k, jt.i)
+    for digitize in (True, False):
+        got = ta.align_traces(h, seqs, tr, digitize=digitize)
+        want = jta.align_traces(jh, jseqs, jtr, digitize=digitize)
+        assert got.alignment == want.alignment
+        assert got.names == want.names
+    t, jt = (mod.trace_from_sequence(x[0])
+             for mod, x in ((tracealign, seqs), (jax_tracealign, jseqs)))
+    assert (t.states, t.k, t.i) == (jt.states, jt.k, jt.i)
+
+
+def test_iterative_search_equals_jax():
+    """``Pipeline.iterate_hmm`` (``IterativeSearch`` without an engine)
+    from a calibrated smoke model over a small planted block, two
+    rounds."""
+    h = syn.smoke_models()[2]
+    targets, _ = syn.make_targets([h], 30, seed=33, median=150.0)
+    got = Pipeline(h.alphabet, incE=0.001, incdomE=0.001).iterate_hmm(
+        h, targets, builder=Builder(h.alphabet, architecture="hand",
+                                    device="cpu"))
+    want = JPipeline(JAlphabet.amino(), incE=0.001,
+                     incdomE=0.001).iterate_hmm(
+        jax_hmm(h), jax_block(targets),
+        builder=JBuilder(JAlphabet.amino(), architecture="hand"))
+    for _ in range(2):
+        g, w = next(got), next(want)
+        assert rows(g.hits) == rows(w.hits)
+        assert (len(g.msa), g.converged, g.iteration) == \
+            (len(w.msa), w.converged, w.iteration)
+        np.testing.assert_array_equal(g.msa.codes, w.msa.codes)
+        assert len(g.msa) >= 1
