@@ -1,4 +1,4 @@
-"""Iterative search (jackhmmer driver).
+"""Iterative search (the jackhmmer loop).
 
 Mirrors ``pyhmmer.plan7.IterativeSearch`` / ``IterationResult`` (reference
 ``src/pyhmmer/plan7.pyx:4028-4182``): iteration 1 builds a model from the
