@@ -3,7 +3,10 @@ card (MSV: ovf identical, dx exact on every pair the kernel does not
 flag, biaslog within 1e-4 nats; Viterbi <= 1e-3 nats on every route of
 its kernel; Forward <= 5e-3 nats; the survivor
 rows' scores within 2e-3 nats and their decoded rows within the JAX
-package's bars; the f32 summation order being the only difference).
+package's bars; the f32 summation order being the only difference);
+``Builder.calibrate`` on the card against the CPU (MSV mu, tau and
+lambda equal, Viterbi mu within 1e-3 bits) and phmmer on the card
+against the CPU (identical rows).
 Marked ``gpu``: they skip where there is no CUDA device.  On the card,
 where JAX is not installed, run them without the repository's
 conftest::
