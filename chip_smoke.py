@@ -58,17 +58,40 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 7. jackhmmer: two of those queries, three iterations each through the
    engine; for the first, every iteration equals ``IterativeSearch``
    without an engine (rows, MSA size, convergence, iteration);
-8. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
-   was imported: the port runs on its own host layers.
+8. wide: the wide route (models over 4,096 slots, one CTA a pair) of
+   each kernel against its plain version at Mk 4,608 (a sampled M 4,200
+   model) and 9,216 (the model built from the 9,000-residue target)
+   against the 512 bucket, and at 35,328 (the 35,000-residue target's)
+   against 8 lanes; then phmmer with the 9,000-residue target as the
+   query against the block, once warm and three timed runs (its query
+   its own best hit), one run with the cascade forced (its launches
+   counted, its rows those of the timed runs) and its rows against the
+   sequential oracle on every 14th target;
+9. nhmmer: three sampled DNA models (M 400, 1,200, 5,000: the last on
+   the wide route), calibrated on the card, against a seeded 2 Mb
+   genome of 4 records with 3 mutated copies of each planted on both
+   strands (``_synthetic.nhmmer_workload``): once warm, three timed
+   runs; the rows equal the host path's (``PYHMMER_TPU_NHMMER_DEVICE=0``)
+   and every planted copy is reported on its strand; the gate launch
+   with the most cells of each kernel against its plain version;
+10. hmmscan: the 4,002 targets scanned against the 245-model stack, once
+    warm and three timed runs, Z the number of models; the three
+    targets with the most reported models against
+    ``Pipeline.scan_seq``;
+11. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
+    was imported: the port runs on its own host layers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the kernels' JSON record (launches on the main
 path and per search path, error, times of the first parity shape, its
 bound), and the one before that the card's name and power limit.  Phases
-3 and 5-7 set every kernel's launch counter to 0 just before the run
-they count and read them just after.
+3 and 5-10 set every kernel's launch counter to 0 just before the run
+they count and read them just after.  A plain version that takes many
+seconds (the 131,072-residue bucket, nhmmer's largest gate launch) is
+timed on its parity call alone.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -85,7 +108,9 @@ import numpy as np  # noqa: E402
 
 from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
 from pyhmmer_tpu_torch import engine as E  # noqa: E402
-from pyhmmer_tpu_torch import hmmsearch, jackhmmer, phmmer  # noqa: E402
+from pyhmmer_tpu_torch import (hmmscan, hmmsearch, jackhmmer,  # noqa: E402
+                               nhmmer, phmmer)
+from pyhmmer_tpu_torch.easel import DigitalSequenceBlock  # noqa: E402
 from pyhmmer_tpu_torch.ops import _build  # noqa: E402
 from pyhmmer_tpu_torch.ops import batch as B  # noqa: E402
 from pyhmmer_tpu_torch.ops import (fwd_cuda, msv_cuda, native,  # noqa: E402
@@ -257,10 +282,17 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def in_turns(kernel, plain, reps_k, reps_p):
+def in_turns(kernel, plain, reps_k, reps_p, plain_once_ms=None):
     """(kernel ms, plain ms), each the mean of two runs taken in turns
-    plain/kernel/kernel/plain; the parity calls before it warm both."""
+    plain/kernel/kernel/plain; the parity calls before it warm both.
+    With ``reps_p`` 0 (a plain call of many seconds) the plain version is
+    not run again: its time is ``plain_once_ms``, the parity's own call,
+    and the kernel's the mean of two runs."""
     torch.cuda.synchronize()
+    if not reps_p:
+        k1 = cuda_ms(kernel, reps_k)
+        k2 = cuda_ms(kernel, reps_k)
+        return (k1 + k2) / 2, plain_once_ms
     p1 = cuda_ms(plain, reps_p)
     k1 = cuda_ms(kernel, reps_k)
     k2 = cuda_ms(kernel, reps_k)
@@ -370,9 +402,8 @@ def msv_parity(pb, dev, reps_k, reps_p, label, tpu):
     args = (dev.codes, dev.lens, pb.msv_w16, pb.msv_scal, pb.msv_odds,
             dev.tjb, dev.p1)
     k = msv_cuda.msv_scores(*args)
-    p = msv_cuda.msv_plain(*args)
-    torch.cuda.synchronize()
-    shape = f"{label}P{pb.P} x B{dev.B} x L{dev.Lmax} x Mk{32 * pb.S}"
+    p, p_ms = timed_once(lambda: msv_cuda.msv_plain(*args))
+    shape = f"{label}P{pb.P} x B{dev.B} x L{dev.Lmax} x Mk{pb.Mk}"
     if not torch.equal(k[1], p[1]):
         fail(f"msv ovf differs from the plain version ({shape})")
     clean = p[1] == 0
@@ -385,7 +416,7 @@ def msv_parity(pb, dev, reps_k, reps_p, label, tpu):
         fail(f"msv biaslog off by {berr.max().item()} ({shape})")
     ms, plain_ms = in_turns(lambda: msv_cuda.msv_scores(*args),
                             lambda: msv_cuda.msv_plain(*args), reps_k,
-                            reps_p)
+                            reps_p, p_ms)
     cells = float(pb.M.astype(np.float64).sum()
                   * dev.lengths.astype(np.float64).sum())
     rec = dict(shape=shape, tpu=tpu, max_abs_err=berr.max().item(), ms=ms,
@@ -428,8 +459,7 @@ def survivor_parity(name, args, pairs, M, reps_k, reps_p, label, tpu):
                               VIT_TOL)}[name]
     codes, lens, lm, emis, trans, cols, need = args
     k = fn(*args, pairs)
-    p = plain(*args)
-    torch.cuda.synchronize()
+    p, p_ms = timed_once(lambda: plain(*args))
     live = (k > NEG_LIVE) & (p > NEG_LIVE)
     if not torch.equal(k > NEG_LIVE, p > NEG_LIVE):
         fail(f"{name}: live pairs differ from the plain version")
@@ -439,14 +469,14 @@ def survivor_parity(name, args, pairs, M, reps_k, reps_p, label, tpu):
     if err > tol:
         fail(f"{name}: kernel vs plain {err} > {tol} nats")
     ms, plain_ms = in_turns(lambda: fn(*args, pairs), lambda: plain(*args),
-                            reps_k, reps_p)
+                            reps_k, reps_p, p_ms)
     clens = lens[cols].to(torch.float64).cpu()
     cells = float((torch.as_tensor(M, dtype=torch.float64)[:, None]
                    * clens[None, :])[need.cpu()].sum())
     rec = dict(
         shape=f"{label}P{emis.shape[0]} x n{len(cols)} (need "
               f"{int(need.sum())}) x L{codes.shape[1]} x "
-              f"Mk{32 * B.packed_stripes(trans)}",
+              f"Mk{B.table_width(trans)}",
         tpu=tpu, max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
         **bound(vit_ops_s(cells) if name == "vit"
                 else FILTER_FLOPS * cells / F32_RATE, (*args, pairs), (k,)))
@@ -477,7 +507,7 @@ def phase_parity(queries, targets):
     # rows)
     for Mp, Lmax, reps_k, reps_p in ((big, 512, 20, 2), (big, 2048, 20, 2),
                                      (huge, 512, 20, 2),
-                                     (huge, max(devs), 3, 1)):
+                                     (huge, max(devs), 3, 0)):
         # every Mp here is under the stacked kernel's row cap
         results["msv"].append(msv_parity(pbs[Mp], devs[Lmax], reps_k,
                                          reps_p, "", "_msv_pallas2"))
@@ -495,7 +525,7 @@ def phase_parity(queries, targets):
     pb, dev = pbs[huge], devs[max(devs)]
     cases.append((pb, dev, torch.arange(dev.B, device="cuda"),
                   torch.ones((pb.P, dev.B), dtype=torch.bool,
-                             device="cuda"), None, 3, 1, "", ("fwd", "vit")))
+                             device="cuda"), None, 3, 0, "", ("fwd", "vit")))
     launches = main_path_launches(fwd_cuda, "forward", queries, targets)
     pb, dev, cols, need, pairs = max(launches, key=lambda c: int(c[3].sum()))
     cases.append((pb, dev, cols, need, pairs, 20, 1,
@@ -584,7 +614,7 @@ def rows_parity(pb, dev, pair_p, pair_b, label):
                                    for r in (k, p))
     npairs = len(order)
     shape = (f"{label}P{pb.P} x {npairs} pairs x L{dev.Lmax} x "
-             f"Mk{32 * pb.S}")
+             f"Mk{pb.Mk}")
     if not (np.isfinite(kt).all() and np.isfinite(kf).all()
             and np.isfinite(kb).all()):
         fail(f"rows: non-finite kernel output ({shape})")
@@ -676,21 +706,29 @@ def phase_search(queries, targets, device_rows=False):
     return res, launches
 
 
-def forced_search(queries, targets, device_rows):
-    """One search with every bias survivor on the device cascade."""
+@contextlib.contextmanager
+def forced_cascade():
+    """The engine's routing set so every bias survivor takes the device
+    cascade (:data:`FORCED`), restored on exit."""
     saved = {name: getattr(E, name) for name in FORCED}
     for name, value in FORCED.items():
         setattr(E, name, value)
     try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(E, name, value)
+
+
+def forced_search(queries, targets, device_rows):
+    """One search with every bias survivor on the device cascade."""
+    with forced_cascade():
         eng = E.SearchEngine(queries[0].alphabet, device="cuda",
                              device_rows=device_rows)
         t = time.time()
         res = eng.search(queries, targets)
         torch.cuda.synchronize()
         return res, time.time() - t, eng.last_timing
-    finally:
-        for name, value in saved.items():
-            setattr(E, name, value)
 
 
 def phase_rows_correctness(queries, targets):
@@ -947,6 +985,281 @@ def phase_jackhmmer(smi, queries, targets):
     return launches
 
 
+#: the wide route's parity widths: a sampled model (Mp 4,224), and the
+#: models built from the smoke's 9,000- and 35,000-residue targets (Mp
+#: 9,024 and 35,008); the last against a few lanes only
+WIDE_SAMPLED_M = 4200
+WIDE_FEW_LANES = 8
+#: targets of the wide phmmer's oracle comparison: every n-th
+WIDE_ORACLE_STRIDE = 14
+#: the wide phmmer's self-hit scores 20,830 bits; the engine's float64
+#: Forward (the native ``domaindef``) and the oracle's
+#: (``ops/reference.forward``, numpy) sum its 81 million cells in other
+#: orders and differ by about 1.5e-9 of the score (3.2e-5 bits on the
+#: CPU, where the JAX package's engine and oracle give the same two
+#: scores: scripts/engine_oracle_gap.py), which
+#: may cross a 4th-decimal rounding: there scores are held within this
+#: share of their size, every other field of the rows exactly
+WIDE_SCORE_RTOL = 1e-8
+
+
+def rows_match(a, b, rtol):
+    """The reported rows of ``a`` and ``b`` equal, but that a score
+    may differ from the other by ``rtol`` of its size."""
+    if len(a.reported) != len(b.reported):
+        return False
+    for ra, rb, ha, hb in zip(rows(a), rows(b), a.reported, b.reported):
+        if ra[:1] + ra[2:] != rb[:1] + rb[2:]:
+            return False
+        if ra[1] != rb[1] and abs(ha.score - hb.score) > rtol * abs(
+                hb.score):
+            return False
+    return True
+
+
+def wide_batch(h):
+    bg = Background(h.alphabet)
+    prof = Profile(h.M, h.alphabet).configure(h, bg, 400, multihit=True)
+    return B.ProfileBatch([prof], Mp=B.round_up(h.M, 32)).to("cuda")
+
+
+def phase_wide(smi, targets, parity):
+    """The wide route (models over 4,096 slots): each kernel against its
+    plain version at three widths (appended to ``parity``), then phmmer
+    with the 9,000-residue target as the query against the block, once
+    warm and three timed runs; its launches are counted over one run
+    with the cascade forced (every bias survivor on the device Forward
+    and Viterbi); its rows against the sequential oracle on every
+    ``WIDE_ORACLE_STRIDE``-th target and itself.  Returns the
+    launches."""
+    aa = targets.alphabet
+    bg = Background(aa)
+    by_len = {len(s): s for s in targets}
+    q9k, q35k = by_len[syn.SMOKE_LONG[0]], by_len[syn.SMOKE_LONG[1]]
+    builder = Builder(aa, device="cuda")
+    t = time.time()
+    h35, _, _ = builder.copy().build(q35k, bg)
+    build35_s = time.time() - t
+    t = time.time()
+    h9, _, _ = builder.copy().build(q9k, bg)
+    build9_s = time.time() - t
+    hs = syn.sample_models((WIDE_SAMPLED_M,), seed=WIDE_SAMPLED_M)[0]
+    _, codes, lengths, dev512 = next(
+        b for b in E._Buckets(targets, "cuda").buckets if b[3].Lmax == 512)
+    few = B.SeqDevice(codes[:WIDE_FEW_LANES], lengths[:WIDE_FEW_LANES],
+                      aa.nonresidue_code, "cuda")
+    gen = torch.Generator().manual_seed(1)
+    for h, dev in ((hs, dev512), (h9, dev512), (h35, few)):
+        pb = wide_batch(h)
+        if pb.S:
+            fail(f"wide: M {h.M} did not take the wide route")
+        label = f"wide route, M {h.M}: "
+        parity["msv"].append(msv_parity(pb, dev, 5, 1, label,
+                                        "_msv_pallas2"))
+        cols = torch.arange(0, dev.B, 8 if dev.B > 64 else 1,
+                            device="cuda")
+        need = torch.rand((1, len(cols)), generator=gen) < 0.25
+        need[0, 0] = True
+        for name in ("fwd", "vit"):
+            parity[name].append(survivor_parity(
+                name, survivor_args(name, pb, dev, cols, need.to("cuda")),
+                None, pb.M, 5, 1, label, "batch XLA scan"))
+
+    ncmp = len(targets)
+    t = time.time()
+    list(phmmer(q9k, targets, device="cuda"))
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+    walls = []
+    for _ in range(3):
+        t = time.time()
+        res = list(phmmer(q9k, targets, device="cuda"))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t)
+    if not res[0].reported or res[0].reported[0].name != q9k.name:
+        fail("wide phmmer: the query is not its own best hit")
+    # where a search of the built model spends its time (the engine's
+    # stage marks; phmmer's wall adds the build)
+    eng = E.SearchEngine(aa, device="cuda")
+    eng.search([h9], targets)
+    torch.cuda.synchronize()
+    marks = eng.last_timing
+    reset_launches()
+    t = time.time()
+    with forced_cascade():
+        forced = list(phmmer(q9k, targets, device="cuda"))
+    torch.cuda.synchronize()
+    forced_s = time.time() - t
+    launches = read_launches()
+    if min(launches["msv"], launches["fwd"], launches["vit"]) <= 0 or \
+            launches["rows"]:
+        fail(f"wide phmmer: launches {launches}")
+    if rows(forced[0]) != rows(res[0]):
+        fail("wide phmmer: the forced cascade's rows differ")
+    subset = DigitalSequenceBlock(aa, [q9k] + [
+        targets[i] for i in range(0, len(targets), WIDE_ORACLE_STRIDE)])
+    got = next(phmmer(q9k, subset, device="cuda"))
+    t = time.time()
+    ref = Pipeline(aa).search_seq(q9k, subset,
+                                  builder=Builder(aa, device="cuda"))
+    oracle_s = time.time() - t
+    if not rows_match(got, ref, WIDE_SCORE_RTOL) or got.Z != ref.Z:
+        fail(f"wide phmmer: reported rows differ from the oracle's: "
+             f"{rows(got)} != {rows(ref)}")
+    score_diff = max((abs(a.score - b.score) for a, b in
+                      zip(got.reported, ref.reported)), default=0.0)
+    say("wide", card=smi, query_M=h9.M,
+        Mk=B.kernel_width(B.round_up(h9.M, 32)),
+        targets=ncmp, warm_s=warm_s, wall_s=walls,
+        cmp_per_s=[ncmp / w for w in walls], forced_s=forced_s,
+        launches=launches, reported=len(res[0].reported),
+        oracle_targets=len(subset), oracle_reported=len(ref.reported),
+        oracle_score_diff_bits=score_diff, oracle_s=oracle_s,
+        build_9k_s=build9_s, stage_marks=marks, build_35k_s=build35_s,
+        M_35k=h35.M)
+    return launches
+
+
+def nh_rows(th):
+    return [(h.name, round(h.score, 4), float(f"{h.evalue:.4g}"),
+             h.included, len(h.domains), h.best_domain.env_from,
+             h.best_domain.env_to) for h in th.reported]
+
+
+def phase_nhmmer(smi, parity):
+    """nhmmer of the seeded DNA workload (``_synthetic.nhmmer_workload``):
+    each model calibrated on the card, once warm (the gates' launches
+    recorded), three timed runs (the counts read over the last); the
+    rows equal the host path's (gates off) and every planted copy is
+    found on its strand; the gate launch with the most cells against the
+    plain versions.  Returns the launches."""
+    models, genome, planted = syn.nhmmer_workload()
+    dna = genome.alphabet
+    bld, bg = Builder(dna, device="cuda"), Background(dna)
+    cal = []
+    for h in models:
+        t = time.time()
+        bld.calibrate(h, bg)
+        cal.append(time.time() - t)
+    t = time.time()
+    _, calls = captured(
+        [(msv_cuda, "msv"), (vit_cuda, "viterbi"), (fwd_cuda, "forward")],
+        lambda: list(nhmmer(models, genome, device="cuda")))
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+    walls = []
+    for run in range(3):
+        if run == 2:
+            reset_launches()
+        t = time.time()
+        res = list(nhmmer(models, genome, device="cuda"))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t)
+    launches = read_launches()
+    if min(launches["msv"], launches["fwd"], launches["vit"]) <= 0 or \
+            launches["rows"]:
+        fail(f"nhmmer: launches {launches}")
+    os.environ["PYHMMER_TPU_NHMMER_DEVICE"] = "0"
+    try:
+        t = time.time()
+        host = list(nhmmer(models, genome, device="cuda"))
+        host_s = time.time() - t
+    finally:
+        del os.environ["PYHMMER_TPU_NHMMER_DEVICE"]
+    for th, ref in zip(res, host):
+        if nh_rows(th) != nh_rows(ref):
+            fail(f"nhmmer {th.query_name.decode()}: rows differ from the "
+                 f"host path's")
+    for name, rec, a, b, strand in planted:
+        th = next(x for x in res if x.query_name == name)
+        if not any(h.name == rec and (h.best_domain.ali_from
+                                      <= h.best_domain.ali_to)
+                   == (strand == "+")
+                   and min(h.best_domain.env_from, h.best_domain.env_to)
+                   <= b and max(h.best_domain.env_from,
+                                h.best_domain.env_to) >= a
+                   for h in th.reported):
+            fail(f"nhmmer: planted copy {name.decode()} {rec.decode()}:"
+                 f"{a}-{b} ({strand}) not reported")
+    residues = int(sum(len(s) for s in genome))
+    k = max(range(len(calls[0])),
+            key=lambda i: float(calls[0][i][0].M.sum())
+            * float(calls[0][i][1].lengths.sum()))
+    pb, dev = calls[0][k]
+    label = f"nhmmer's largest gate launch ({k + 1} of {len(calls[0])}): "
+    parity["msv"].append(msv_parity(pb, dev, 3, 0, label,
+                                    "_msv_pallas (msv_scores_pallas)"))
+    # the JAX package's gates: _vit_pallas, and _fwd_pallas2 up to Mp
+    # 768, the XLA Forward scan beyond (pyhmmer_tpu/plan7/
+    # longtargets.py:570-594)
+    for name, j, tpu in (("vit", 1, "_vit_pallas"),
+                         ("fwd", 2, "_fwd_pallas2" if pb.Mp <= 768
+                          else "batch XLA scan")):
+        pb, dev, cols, need, pairs = calls[j][k]
+        parity[name].append(survivor_parity(
+            name, survivor_args(name, pb, dev, cols, need), pairs, pb.M, 3,
+            0, label, tpu))
+    say("nhmmer", card=smi, models=[h.M for h in models],
+        records=len(genome), residues=residues, calibrate_s=cal,
+        warm_s=warm_s, wall_s=walls,
+        residues_per_s=[2 * residues * len(models) / w for w in walls],
+        host_path_s=host_s, launches=launches,
+        gate_calls=len(calls[0]),
+        gate_lanes=[c[1].B for c in calls[0]],
+        gate_Lmax=[c[1].Lmax for c in calls[0]],
+        reported=[len(th.reported) for th in res], planted=len(planted),
+        n_past=[(th.n_past_msv, th.n_past_bias, th.n_past_vit,
+                 th.n_past_fwd) for th in res])
+    return launches
+
+
+def phase_hmmscan(smi, queries, targets):
+    """hmmscan of the 4,002 targets against the 245-model stack: once
+    warm, three timed runs (the counts read over the last); for the
+    three targets with the most reported models (planted domains) the
+    rows equal the sequential ``Pipeline.scan_seq``'s.  Returns the
+    launches."""
+    ncmp = len(queries) * len(targets)
+    t = time.time()
+    list(hmmscan(targets, queries, device="cuda"))
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+    walls = []
+    for run in range(3):
+        if run == 2:
+            reset_launches()
+        t = time.time()
+        res = list(hmmscan(targets, queries, device="cuda"))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t)
+    launches = read_launches()
+    if min(launches["msv"], launches["fwd"], launches["vit"]) <= 0 or \
+            launches["rows"]:
+        fail(f"hmmscan: launches {launches}")
+    if any(th.Z != len(queries) for th in res):
+        fail("hmmscan: Z is not the number of models")
+    by_name = {th.query_name: th for th in res}
+    # the three targets with the most reported models (planted domains)
+    picks = sorted(by_name, key=lambda n: (-len(by_name[n].reported),
+                                           n))[:3]
+    seqs = {s.name: s for s in targets}
+    t = time.time()
+    for name in picks:
+        ref = Pipeline(targets.alphabet).scan_seq(seqs[name], queries)
+        if rows(by_name[name]) != rows(ref) or by_name[name].Z != ref.Z:
+            fail(f"hmmscan {name.decode()}: rows differ from "
+                 f"Pipeline.scan_seq")
+        if not ref.reported:
+            fail(f"hmmscan {name.decode()}: no reported model")
+    oracle_s = time.time() - t
+    say("hmmscan", card=smi, queries=len(targets), models=len(queries),
+        comparisons=ncmp, warm_s=warm_s, wall_s=walls,
+        cmp_per_s=[ncmp / w for w in walls], launches=launches,
+        oracle_queries=[n.decode() for n in picks], oracle_s=oracle_s,
+        reported=sum(len(th.reported) for th in res))
+    return launches
+
+
 def padded_width(queries, h):
     """The padded model width of the engine chunk holding ``h``."""
     qi = next(i for i, q in enumerate(queries) if q is h)
@@ -983,6 +1296,9 @@ def main():
     by_path["phmmer"] = phase_phmmer(smi, seqs, targets, planted, models,
                                      parity)
     by_path["jackhmmer"] = phase_jackhmmer(smi, seqs, targets)
+    by_path["wide"] = phase_wide(smi, targets, parity)
+    by_path["nhmmer"] = phase_nhmmer(smi, parity)
+    by_path["hmmscan"] = phase_hmmscan(smi, queries, targets)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "pyhmmer_tpu"))
     if foreign:

@@ -1,12 +1,14 @@
 """pyhmmer_tpu_torch -- the PyTorch/CUDA port of pyhmmer_tpu's search
 path.
 
-``hmmsearch``, ``phmmer`` and ``jackhmmer`` run the filter cascade (MSV
-with the fused bias filter, Forward, Viterbi) as hand-written CUDA
-kernels on an NVIDIA Hopper GPU, or as their plain PyTorch versions on
-the CPU, and report hits through the same exact host postprocessing as
-``pyhmmer_tpu``; the model ``Builder`` calibrates E-values on the MSV and
-Viterbi kernels.  The package keeps
+``hmmsearch``, ``hmmscan``, ``phmmer`` and ``jackhmmer`` run the filter
+cascade (MSV with the fused bias filter, Forward, Viterbi) as
+hand-written CUDA kernels on an NVIDIA Hopper GPU, or as their plain
+PyTorch versions on the CPU, and report hits through the same exact host
+postprocessing as ``pyhmmer_tpu``; ``nhmmer`` gates its long-target
+subwindows on the same kernels; the model ``Builder`` calibrates
+E-values on the MSV and Viterbi kernels.  Models of any width run on
+the card (past 4,096 slots on the kernels' wide route).  The package keeps
 its own copy of the host layers it needs (``easel``, ``plan7``,
 ``ops.{native,reference,quantize}``, ``csrc/hmmdp.cpp``) and imports
 neither JAX nor any module of ``pyhmmer_tpu``.
@@ -25,7 +27,7 @@ tests skip); on a card, ``python3 chip_smoke.py`` and
 __version__ = "0.1.0"
 
 from .engine import SearchEngine
-from .hmmer import hmmsearch, jackhmmer, phmmer
+from .hmmer import hmmscan, hmmsearch, jackhmmer, nhmmer, phmmer
 
-__all__ = ["hmmsearch", "phmmer", "jackhmmer", "SearchEngine",
-           "__version__"]
+__all__ = ["hmmsearch", "hmmscan", "phmmer", "jackhmmer", "nhmmer",
+           "SearchEngine", "__version__"]

@@ -10,6 +10,10 @@ Everything is drawn with numpy's ``default_rng`` from a seed:
   residue is the consensus residue with probability ``consensus`` and
   otherwise drawn from the match emissions.
 
+The nhmmer workload (:func:`nhmmer_workload`) is a small bacterial
+genome against a handful of repeat families: sampled DNA models planted,
+mutated, on both strands of a seeded genome.
+
 The smoke workload is a Pfam-like query stack against a proteome: the 16
 distinct models of ``SMOKE_M``, replicated by ``bench.py``'s length
 weights to about 240 queries, against 4,000 targets (median length 280)
@@ -222,6 +226,104 @@ def smoke_workload(n_targets: int = SMOKE_TARGETS):
     targets, planted = make_targets(models, n_targets, SMOKE_SEED + 1,
                                     long_lengths=SMOKE_LONG)
     return replicate(models), models, targets, planted
+
+
+#: the nhmmer workload: sampled DNA models (the last one wider than the
+#: kernels' 4,096-slot stripes, so its gates take the wide route), and a
+#: small bacterial genome of 4 records, 2 Mb in all, with 4 mutated copies
+#: of each model planted in one record, two on each strand.  nhmmer gates
+#: a record's candidate subwindows on the device only from 4 of them
+#: (``plan7/longtargets.py``, as in the JAX package), and the widest
+#: model seeds almost nowhere but on its copies, so its record holds 4
+NHMMER_M = (400, 1200, 5000)
+NHMMER_SEED = 2025
+NHMMER_RECORDS = 4
+NHMMER_RECORD_LEN = 500_000
+NHMMER_COPIES = 4
+
+
+#: Dirichlet parameters of the DNA models' match emissions and of their
+#: M -> (M, I, D), I -> (M, I) and D -> (M, D) transitions: a repeat
+#: family's profile mostly follows its match states, with the occasional
+#: indel (``HMM.sample``'s flat Dirichlet(1) gives a third of every
+#: state's mass to indels, so a planted copy of such a model scores
+#: nothing)
+DNA_EMIT, DNA_TM, DNA_TI, DNA_TD = 0.5, (60.0, 1.0, 1.0), (2.0, 1.0), \
+    (2.0, 1.0)
+
+
+def sample_dna_models(Ms: Sequence[int], seed: int) -> List[HMM]:
+    """One sampled DNA model per length (``dna-M<M>``), from one
+    generator: ``HMM.sample``'s model with its match emissions and core
+    transitions redrawn from :data:`DNA_EMIT` and :data:`DNA_TM`
+    (``DNA_TI``, ``DNA_TD``); uncalibrated."""
+    dna = Alphabet.dna()
+    rng = np.random.default_rng(seed)
+    out = []
+    for M in Ms:
+        M = int(M)
+        h = HMM.sample(dna, M, rng)
+        h.mat[1:] = rng.dirichlet(np.full(dna.K, DNA_EMIT), size=M)
+        h.t[:M, 0:3] = rng.dirichlet(DNA_TM, size=M)
+        h.t[:, 3:5] = rng.dirichlet(DNA_TI, size=M + 1)
+        h.t[1:M, 5:7] = rng.dirichlet(DNA_TD, size=M - 1)
+        h.name = b"dna-M%04d" % M
+        out.append(h)
+    return out
+
+
+def make_genome(models: Sequence[HMM], n_records: int, record_len: int,
+                copies: int, seed: int, consensus: float = 0.85,
+                gap: int = 20_000) -> Tuple[DigitalSequenceBlock, list]:
+    """``n_records`` DNA records of ``record_len`` i.i.d. background
+    residues (``chr1``...) with ``copies`` mutated copies of each model
+    planted (:func:`plant`, the consensus residue with probability
+    ``consensus``): the copies of model ``i`` in record ``i %
+    n_records`` (a repeat family clustered on one chromosome), at random
+    places at least ``gap`` residues apart, every other one
+    reverse-complemented onto the minus strand.  Returns the block and
+    the planted copies as (model name, record name, first, last,
+    strand), 1-based coordinates on the record."""
+    dna = models[0].alphabet
+    rng = np.random.default_rng(seed)
+    f = np.asarray(Background(dna).residue_frequencies, np.float64)
+    f = f / f.sum()
+    recs = [rng.choice(len(f), size=record_len, p=f).astype(np.uint8)
+            for _ in range(n_records)]
+    taken: List[List[Tuple[int, int]]] = [[] for _ in range(n_records)]
+    planted = []
+    for i, h in enumerate(models):
+        r = i % n_records
+        for k in range(copies):
+            dom = plant(h, rng, consensus)
+            strand = "+" if k % 2 == 0 else "-"
+            if strand == "-":
+                dom = dna.complement_map[dom][::-1]
+            for _ in range(10_000):
+                at = int(rng.integers(0, record_len - len(dom)))
+                if all(at + len(dom) + gap < a or b + gap < at
+                       for a, b in taken[r]):
+                    break
+            else:
+                raise ValueError("record too short for the copies")
+            recs[r][at: at + len(dom)] = dom
+            taken[r].append((at, at + len(dom)))
+            planted.append((h.name, b"chr%d" % (r + 1), at + 1,
+                            at + len(dom), strand))
+    block = DigitalSequenceBlock(dna, [
+        DigitalSequence(dna, name=b"chr%d" % (r + 1), sequence=s)
+        for r, s in enumerate(recs)])
+    return block, planted
+
+
+def nhmmer_workload():
+    """(uncalibrated DNA models, genome block, planted copies) of the
+    nhmmer smoke run."""
+    models = sample_dna_models(NHMMER_M, NHMMER_SEED)
+    genome, planted = make_genome(models, NHMMER_RECORDS,
+                                  NHMMER_RECORD_LEN, NHMMER_COPIES,
+                                  NHMMER_SEED + 1)
+    return models, genome, planted
 
 
 def recall(results, planted: Dict[bytes, Set[bytes]]) -> float:

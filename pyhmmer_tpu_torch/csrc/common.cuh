@@ -11,6 +11,18 @@
 // the stripe lives in registers; PYHMMER_STRIPES lists the compiled
 // widths (ops/batch.py:STRIPES must match).  msv.cu re-stripes its table
 // in shared memory to give narrow models 16 lanes and two targets a warp.
+//
+// The wide route, for models wider than 32 * 128 = 4,096 slots (any width
+// the port accepts, up to the 100,000 residues of a phmmer query): one CTA
+// of CTA_THREADS threads scores one (profile, target) pair, thread t owning
+// the contiguous run of SPT = Mk / CTA_THREADS slots t*SPT .. t*SPT+SPT-1
+// (Mk is a runtime argument, a multiple of CTA_THREADS: ops/batch.py:
+// kernel_width).  The tables are unstriped ([P, Kp, Mk] MSV words, [P, Kp,
+// 2, Mk] emissions, [P, 8, Mk] transitions).  A row's cells live in a
+// global scratch buffer of two rows a CTA, stored [SPT][CTA_THREADS] so
+// the threads' accesses to one position j are contiguous; a grid of at
+// most a few CTAs a SM walks over the pairs (msv.cu, vit.cu, fwd.cu:
+// *_cta_kernel).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,6 +35,9 @@
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float NEGMASS = -1e30f;
 constexpr int WARPS_PER_BLOCK = 4;
+// the wide route (ops/batch.py:CTA_THREADS must match)
+constexpr int CTA_THREADS = 512;
+constexpr int CTA_WARPS = CTA_THREADS / 32;
 
 __device__ __forceinline__ int warp_max_i(int v) {
 #pragma unroll

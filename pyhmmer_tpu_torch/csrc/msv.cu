@@ -37,6 +37,15 @@
 //   scalar recurrence), with the float operations of the fused scan in the
 //   same order.
 //
+// * msv_cta_kernel, the wide route (models over 4,096 slots, common.cuh):
+//   one CTA a pair, in int32 (no 16-bit packing, so dx is exact on every
+//   pair, flagged or not).  Each thread runs its slots in order, the
+//   slot below its first taken from the previous row's value of the
+//   thread below (read from the scratch row after the barrier), then the
+//   row maximum is a block reduction: one barrier a row, the warps'
+//   maxima double-buffered by row parity.  Every thread updates xJ and xB
+//   itself from the same maximum.
+//
 // The engine launches the long buckets' scans (a few warps each, latency
 // bound) on side streams, so they overlap the short buckets.
 //
@@ -300,6 +309,77 @@ bias_kernel(const uint8_t* __restrict__ codes, int Lmax,
   biaslog[(size_t)p * B + b] = lsc + logf(a0 + a1);
 }
 
+// The wide route: pair w of a grid-strided loop is profile w / B, target
+// w % B; scratch holds two rows a CTA, [2][SPT][CTA_THREADS] int32.
+__global__ void __launch_bounds__(CTA_THREADS)
+msv_cta_kernel(const uint8_t* __restrict__ codes, int Lmax,
+               const int* __restrict__ lens,
+               const int16_t* __restrict__ w16,  // [P, Kp, Mk] bias - cost
+               const float* __restrict__ scal,   // [P, 4] bias, tec, tbm, -
+               const float* __restrict__ tjb,    // [B]
+               int B, int Kp, int Mk, int npairs, int* __restrict__ scratch,
+               float* __restrict__ dx, float* __restrict__ ovf) {
+  __shared__ int smax[2][CTA_WARPS];
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const int spt = Mk / CTA_THREADS;
+  const int s0 = t * spt;
+  int* buf = scratch + (size_t)blockIdx.x * 2 * Mk;
+  for (int w = blockIdx.x; w < npairs; w += gridDim.x) {
+    __syncthreads();  // the previous pair's reads of the scratch are done
+    const int p = w / B, b = w % B;
+    const int bias = (int)scal[p * 4 + 0];
+    const int tec = (int)scal[p * 4 + 1];
+    const int tbm = (int)scal[p * 4 + 2];
+    const int tj = (int)tjb[b];
+    const int L = lens[b];
+    const int16_t* wp = w16 + (size_t)p * Kp * Mk + s0;
+    const uint8_t* seq = codes + (size_t)b * Lmax;
+    int xJ = 0, xB = max(190 - tj, 0);
+    int carry = 0;  // the previous row's cell of slot s0 - 1
+    int par = 0;
+    for (int i = 0; i < L; ++i) {
+      const int16_t* wr = wp + (size_t)seq[i] * Mk;
+      const int* prev = buf + (par ^ 1) * Mk + t;
+      int* cur = buf + par * Mk + t;
+      const int xBv = max(xB - tbm, 0);
+      int pm = carry, mx = 0;
+      for (int j = 0; j < spt; ++j) {
+        const int om = i ? prev[j * CTA_THREADS] : 0;
+        const int v = max(max(pm, xBv) + (int)wr[j], 0);
+        cur[j * CTA_THREADS] = v;
+        mx = max(mx, v);
+        pm = om;
+      }
+      mx = __reduce_max_sync(FULL_MASK, mx);
+      if (lane == 0) smax[par][wid] = mx;
+      __syncthreads();
+      int rmax = 0;
+#pragma unroll
+      for (int v = 0; v < CTA_WARPS; ++v) rmax = max(rmax, smax[par][v]);
+      xJ = max(xJ, rmax - tec);
+      xB = max(xJ, 190) - tj;
+      // slot 0 enters from B only: 0 is below every xBv
+      carry = t ? buf[par * Mk + (spt - 1) * CTA_THREADS + t - 1] : 0;
+      par ^= 1;
+    }
+    if (t == 0) {
+      const size_t o = (size_t)p * B + b;
+      dx[o] = (float)(xJ - 190);
+      ovf[o] = xJ >= 255 - bias - tec ? 1.f : 0.f;
+    }
+  }
+}
+
+static int launch_bias(const void* codes, int Lmax, const void* lens,
+                       const void* odds, const void* p1, int B, int P,
+                       int Kp, void* biaslog, cudaStream_t st) {
+  dim3 bgrid(B, (P + BIAS_THREADS - 1) / BIAS_THREADS);
+  bias_kernel<<<bgrid, BIAS_THREADS, 0, st>>>(
+      (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)odds,
+      (const float*)p1, B, P, Kp, (float*)biaslog);
+  return (int)cudaGetLastError();
+}
+
 template <int S>
 static int launch_msv(const void* codes, int Lmax, const void* lens,
                       const void* w16, const void* scal, const void* tjb,
@@ -333,12 +413,9 @@ extern "C" int msv_launch(const void* codes, int Lmax, const void* lens,
   if (B <= 0 || P <= 0) return 0;
   if (Kp > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 bgrid(B, (P + BIAS_THREADS - 1) / BIAS_THREADS);
-  bias_kernel<<<bgrid, BIAS_THREADS, 0, st>>>(
-      (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)odds,
-      (const float*)p1, B, P, Kp, (float*)biaslog);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = launch_bias(codes, Lmax, lens, odds, p1, B, P, Kp, biaslog,
+                            st);
+  if (e) return e;
   switch (S) {
 #define PYHMMER_CASE(s)                                                    \
   case s:                                                                  \
@@ -349,6 +426,30 @@ extern "C" int msv_launch(const void* codes, int Lmax, const void* lens,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wide route: nctas CTAs (scratch holds 2 * Mk int32 for each)
+extern "C" int msv_cta_launch(const void* codes, int Lmax, const void* lens,
+                              const void* w16, const void* scal,
+                              const void* odds, const void* tjb,
+                              const void* p1, int B, int P, int Kp, int Mk,
+                              void* dx, void* ovf, void* biaslog,
+                              void* scratch, int nctas, void* stream) {
+  if (B <= 0 || P <= 0) return 0;
+  if (Kp > 32 || Mk <= 0 || Mk % CTA_THREADS || nctas <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int e = launch_bias(codes, Lmax, lens, odds, p1, B, P, Kp, biaslog,
+                            st);
+  if (e) return e;
+  const long long npairs = (long long)P * B;
+  if (npairs > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)std::min<long long>(nctas, npairs);
+  msv_cta_kernel<<<grid, CTA_THREADS, 0, st>>>(
+      (const uint8_t*)codes, Lmax, (const int*)lens, (const int16_t*)w16,
+      (const float*)scal, (const float*)tjb, B, Kp, Mk, (int)npairs,
+      (int*)scratch, (float*)dx, (float*)ovf);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* pyhmmer_cuda_error_string(int err) {

@@ -62,6 +62,21 @@
 //   holds at once (S = 16 and 24: launch_vit), one warp a pair issues
 //   less and is the default.
 //
+// * The wide route, vit_cta_kernel (models over 4,096 slots, common.cuh):
+//   one CTA a pair, each thread a contiguous run of slots.  A thread runs
+//   M and I over its slots and the D chain with NEGMASS entering (its map
+//   (B, C) as above; A, the D->D sum over its slots), then the warps scan
+//   the threads' maps with shuffles and lane 31 writes its warp's map (and
+//   lane 30 its inclusive prefix) to shared memory: one barrier a row,
+//   double-buffered by row parity.  Every thread then composes the warps'
+//   maps itself, giving E and the D entering itself and the thread below
+//   it.  The scratch row holds each slot's M, I and its local D; the true
+//   D, max(local, X + the D->D sum to the slot), is formed when the next
+//   row reads it, so the row is written once.  The previous row's last
+//   slot of the thread below is read after the barrier from the scratch
+//   row, which is not written again until two rows later.  Cells are
+//   clamped at NEGMASS as in the plain version.
+//
 // Values stay finite: I cells are clamped at NEGMASS; an M cell is at
 // least xB + tBM + e, and a D cell, made anew from M every row, at least
 // an M cell plus tMD: no cell falls below 3 NEGMASS, and the D->D sums
@@ -356,6 +371,146 @@ vit_kernel(const uint8_t* __restrict__ codes, int Lmax,
   if (threadIdx.x % (32 * NWS) == 0) out[pair_out[w]] = xC + move;
 }
 
+// one position j of the scratch rows [3][SPT][CTA_THREADS] of thread t
+#define CTA_AT(q, j) ((size_t)((q) * spt + (j)) * CTA_THREADS)
+
+// The wide route: scratch holds two rows a CTA, [2][3][SPT][CTA_THREADS].
+__global__ void __launch_bounds__(CTA_THREADS)
+vit_cta_kernel(const uint8_t* __restrict__ codes, int Lmax,
+               const int* __restrict__ lens, const float* __restrict__ lm,
+               const float* __restrict__ emis,   // [P, Kp, 2, Mk] log
+               const float* __restrict__ trans,  // [P, 8, Mk] log
+               const int* __restrict__ pair_p,
+               const int* __restrict__ pair_row,
+               const int* __restrict__ pair_out, int npairs, int Kp, int Mk,
+               float* __restrict__ scratch, float* __restrict__ out) {
+  // per warp and row parity: its map (A, B) and the row's E share C;
+  // lane 30's inclusive map
+  __shared__ float4 sW[2][CTA_WARPS];
+  __shared__ float2 s30[2][CTA_WARPS];
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const int spt = Mk / CTA_THREADS;
+  const int s0 = t * spt;
+  float* buf = scratch + (size_t)blockIdx.x * 6 * Mk;
+  for (int w = blockIdx.x; w < npairs; w += gridDim.x) {
+    __syncthreads();  // the previous pair's reads of the scratch are done
+    const int p = pair_p[w], row = pair_row[w];
+    const int L = lens[row];
+    const float loop = lm[row * 4 + 2], move = lm[row * 4 + 3];
+    const float* T = trans + (size_t)p * 8 * Mk + s0;
+    const float* EM = emis + (size_t)p * Kp * 2 * Mk + s0;
+    // the D->D sum over this thread's slots but the last one, for the
+    // thread above (it forms this thread's last D from the scratch row)
+    float own_pre_last = 0.f;
+    for (int j = 0; j + 1 < spt; ++j) own_pre_last += T[7 * Mk + j];
+    // ... and the thread below's, for this thread
+    const float nb_pre_last = __shfl_up_sync(FULL_MASK, own_pre_last, 1);
+    float nb_pre = nb_pre_last;
+    if (lane == 0 && t) {
+      nb_pre = 0.f;
+      for (int j = 0; j + 1 < spt; ++j) nb_pre += T[7 * Mk + j - spt];
+    }
+    float xN = 0.f, xB = move, xJ = NEGMASS, xC = NEGMASS;
+    // the previous row's cells of slot s0 - 1 (true values), and the D
+    // that entered this thread's slots on the previous row
+    float cm = NEGMASS, ci = NEGMASS, cd = NEGMASS, Xprev = NEGMASS;
+    int par = 0;
+    const uint8_t* seq = codes + (size_t)row * Lmax;
+    for (int i = 0; i < L; ++i) {
+      const float* em = EM + (size_t)seq[i] * 2 * Mk;
+      const float* prev = buf + (par ^ 1) * 3 * Mk + t;
+      float* cur = buf + par * 3 * Mk + t;
+      float pm = cm, pi = ci, pd = cd;
+      float dl = NEGMASS, C = NEGMASS, pre = 0.f;
+      for (int j = 0; j < spt; ++j) {
+        float om = NEGMASS, oi = NEGMASS, od = NEGMASS;
+        if (i) {
+          om = prev[CTA_AT(0, j)];
+          oi = prev[CTA_AT(1, j)];
+          od = fmaxf(fmaxf(prev[CTA_AT(2, j)], Xprev + pre), NEGMASS);
+        }
+        const float ex = em[j], ey = em[Mk + j];
+        const float nm = fmaxf(
+            fmaxf(ex + fmaxf(fmaxf(pm + T[j], pi + T[Mk + j]),
+                             pd + T[2 * Mk + j]),
+                  xB + (T[3 * Mk + j] + ex)),
+            NEGMASS);
+        const float ni =
+            fmaxf(ey + fmaxf(om + T[4 * Mk + j], oi + T[5 * Mk + j]),
+                  NEGMASS);
+        cur[CTA_AT(0, j)] = nm;
+        cur[CTA_AT(1, j)] = ni;
+        cur[CTA_AT(2, j)] = dl;
+        C = fmaxf(C, nm);
+        const float tdd = T[7 * Mk + j];
+        dl = fmaxf(nm + T[6 * Mk + j], dl + tdd);
+        pre += tdd;
+        pm = om;
+        pi = oi;
+        pd = od;
+      }
+      // this thread's map x -> max(x + A, B), A = pre; the warp's scan
+      float A = pre, Bm = dl;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float Ap = __shfl_up_sync(FULL_MASK, A, o);
+        const float Bp = __shfl_up_sync(FULL_MASK, Bm, o);
+        if (lane >= o) {
+          Bm = fmaxf(Bp + A, Bm);
+          A = Ap + A;
+        }
+      }
+      // exclusive prefixes: this lane's and the lane below's
+      float Aex = __shfl_up_sync(FULL_MASK, A, 1);
+      float Bex = __shfl_up_sync(FULL_MASK, Bm, 1);
+      float Anb = __shfl_up_sync(FULL_MASK, A, 2);
+      float Bnb = __shfl_up_sync(FULL_MASK, Bm, 2);
+      if (lane == 0) Aex = 0.f, Bex = NEGMASS;
+      if (lane <= 1) Anb = 0.f, Bnb = NEGMASS;
+      const float Cw = warp_max_f(C);
+      if (lane == 31) sW[par][wid] = make_float4(A, Bm, Cw, 0.f);
+      if (lane == 30) s30[par][wid] = make_float2(A, Bm);
+      __syncthreads();
+      float X = NEGMASS, E = NEGMASS, Xown = NEGMASS, Xpw = NEGMASS;
+#pragma unroll
+      for (int v = 0; v < CTA_WARPS; ++v) {
+        if (v == wid - 1) Xpw = X;
+        if (v == wid) Xown = X;
+        const float4 m = sW[par][v];
+        E = fmaxf(E, m.z);
+        X = fmaxf(X + m.x, m.y);
+      }
+      const float Xt = fmaxf(Xown + Aex, Bex);
+      float Xnb;  // the D that entered the thread below
+      if (lane > 0) {
+        Xnb = fmaxf(Xown + Anb, Bnb);
+      } else if (wid > 0) {
+        const float2 m = s30[par][wid - 1];
+        Xnb = fmaxf(Xpw + m.x, m.y);
+      } else {
+        Xnb = NEGMASS;
+      }
+      if (t) {
+        const float* nb = buf + par * 3 * Mk + t - 1;
+        cm = nb[CTA_AT(0, spt - 1)];
+        ci = nb[CTA_AT(1, spt - 1)];
+        cd = fmaxf(fmaxf(nb[CTA_AT(2, spt - 1)], Xnb + nb_pre), NEGMASS);
+      }
+      Xprev = Xt;
+      const float xe2 = E + LOG_HALF;
+      const float nJ = fmaxf(xJ + loop, xe2);
+      const float nC = fmaxf(xC + loop, xe2);
+      const float nN = xN + loop;
+      xB = fmaxf(nN, nJ) + move;
+      xJ = nJ;
+      xC = nC;
+      xN = nN;
+      par ^= 1;
+    }
+    if (t == 0) out[pair_out[w]] = xC + move;
+  }
+}
+
 // The block route's resident pairs on this card: blocks a SM (at the
 // kernel's registers and shared memory) times the SMs.
 template <int S>
@@ -422,6 +577,7 @@ extern "C" int vit_launch(const void* codes, int Lmax, const void* lens,
                           int npairs, int Kp, int S, int route, void* out,
                           void* stream) {
   if (npairs <= 0) return 0;
+  if (S == 0) return (int)cudaErrorInvalidValue;  // vit_cta_launch
   switch (S) {
 #define PYHMMER_CASE(s)                                                   \
   case s:                                                                 \
@@ -433,4 +589,23 @@ extern "C" int vit_launch(const void* codes, int Lmax, const void* lens,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wide route: nctas CTAs (scratch holds 6 * Mk floats for each)
+extern "C" int vit_cta_launch(const void* codes, int Lmax, const void* lens,
+                              const void* lm, const void* emis,
+                              const void* trans, const void* pair_p,
+                              const void* pair_row, const void* pair_out,
+                              int npairs, int Kp, int Mk, void* out,
+                              void* scratch, int nctas, void* stream) {
+  if (npairs <= 0) return 0;
+  if (Mk <= 0 || Mk % CTA_THREADS || nctas <= 0)
+    return (int)cudaErrorInvalidValue;
+  vit_cta_kernel<<<nctas < npairs ? nctas : npairs, CTA_THREADS, 0,
+                   (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
+      (const float*)emis, (const float*)trans, (const int*)pair_p,
+      (const int*)pair_row, (const int*)pair_out, npairs, Kp, Mk,
+      (float*)scratch, (float*)out);
+  return (int)cudaGetLastError();
 }

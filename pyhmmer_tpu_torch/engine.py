@@ -114,13 +114,17 @@ class _Buckets:
 def group_queries(queries: Sequence[HMM]) -> dict:
     """``{Mp: [query index, ...]}``: queries grouped by model width padded
     to 32; groups of fewer than 32 profiles coalesce upward at 128
-    granularity, so long-tail widths share a chunk."""
+    granularity, so long-tail widths share a chunk, and models past the
+    kernels' widest stripe (the wide route, over 4,096 slots) at the
+    width the kernels pad them to (``ops/batch.py:kernel_width``)."""
     groups: dict = {}
     for qi, hmm in enumerate(queries):
         groups.setdefault(B.round_up(hmm.M, 32), []).append(qi)
     coalesced: dict = {}
     for Mp, qidx in groups.items():
         key = Mp if len(qidx) >= 32 else B.round_up(Mp, 128)
+        if not B.stripe_width(key):
+            key = B.kernel_width(key)
         coalesced.setdefault(key, []).extend(qidx)
     return coalesced
 
@@ -214,15 +218,18 @@ class _ChunkState:
 class SearchEngine:
     """Batched hmmsearch over many queries and one target block.
 
+    ``background`` is the null model every profile is configured
+    against (default: the alphabet's, as in ``pyhmmer_tpu``'s engine).
     ``device`` selects where the cascade runs: a CUDA device runs the
     hand-written kernels, ``"cpu"`` their plain PyTorch versions.
     ``device_rows`` turns on the device rows stage (see the module
     docstring); it needs the native library."""
 
-    def __init__(self, alphabet: Alphabet, device="cuda",
+    def __init__(self, alphabet: Alphabet,
+                 background: Optional[Background] = None, device="cuda",
                  device_rows: bool = False, **pipeline_options):
         self.alphabet = alphabet
-        self.background = Background(alphabet)
+        self.background = background or Background(alphabet)
         self.device = resolve_device(device)
         self.device_rows = bool(device_rows)
         self.options = pipeline_options

@@ -1,9 +1,12 @@
-"""Application layer of the port: ``hmmsearch``, ``phmmer`` and
-``jackhmmer`` through the PyTorch engine (the port of
-``pyhmmer_tpu/hmmer/__init__.py``'s functions of those names).  phmmer
-and jackhmmer build their query models with the port's
+"""Application layer of the port: ``hmmsearch``, ``hmmscan``, ``phmmer``
+and ``jackhmmer`` through the PyTorch engine, and ``nhmmer`` through the
+long-targets pipeline (the port of ``pyhmmer_tpu/hmmer/__init__.py``'s
+functions of those names).  phmmer, jackhmmer and nhmmer build their
+query models with the port's
 :class:`~pyhmmer_tpu_torch.plan7.builder.Builder`, whose E-value
-calibration runs on the same device as the search."""
+calibration runs on the same device as the search; hmmscan runs the
+engine with the profile database as its queries and re-keys the hits by
+model; nhmmer's subwindow gates run on the device's kernels."""
 
 from __future__ import annotations
 
@@ -18,10 +21,13 @@ from ..engine import SearchEngine
 from ..plan7.background import Background
 from ..plan7.builder import Builder
 from ..plan7.hmm import HMM
+from ..plan7.longtargets import LongTargetsPipeline
+from ..plan7.optimized import OptimizedProfile
 from ..plan7.pipeline import Pipeline
-from ..plan7.results import TopHits
+from ..plan7.profile import Profile
+from ..plan7.results import Hit, TopHits
 
-__all__ = ["hmmsearch", "phmmer", "jackhmmer"]
+__all__ = ["hmmsearch", "hmmscan", "phmmer", "jackhmmer", "nhmmer"]
 
 #: jackhmmer sends each round's search to the engine from this many
 #: targets up; smaller target sets take the sequential pipeline
@@ -112,6 +118,145 @@ def _hmmsearch_streamed(queries, seqfile: SequenceFile, alphabet, device,
     return iter(merged)
 
 
+def hmmscan(queries, profiles, *, device="cuda", callback=None,
+            background=None, engine: Optional[SearchEngine] = None,
+            **options) -> Iterator[TopHits]:
+    """Scan sequence(s) against a profile database; yields one
+    :class:`TopHits` per query sequence, in query order, with Z = the
+    number of profiles (``pyhmmer_tpu.hmmer.hmmscan``).  ``profiles``
+    holds :class:`HMM`, :class:`Profile` or :class:`OptimizedProfile`
+    objects (a profile carries its core model).  The scan is the
+    transpose of a search: one :class:`SearchEngine` call on ``device``
+    (or ``engine``, which keeps its configured models across calls) with
+    the profiles as queries and the sequences as targets, each hit then
+    re-keyed by its model (an ``engine`` runs on its own device, and
+    ``device`` is not read); ``backend="oracle"`` scans each sequence
+    with the sequential ``Pipeline.scan_seq`` instead."""
+    dev = engine.device if engine is not None else resolve_device(device)
+    if isinstance(queries, DigitalSequence):
+        queries = [queries]
+    queries = list(queries)
+    hmms = []
+    for p in profiles:
+        if isinstance(p, HMM):
+            hmms.append(p)
+        elif isinstance(p, (OptimizedProfile, Profile)):
+            prof = p.profile if isinstance(p, OptimizedProfile) else p
+            hmm = getattr(prof, "_hmm", None)
+            if hmm is None:
+                raise TypeError(
+                    "optimized profile does not carry its core model; "
+                    "configure it from an HMM")
+            hmms.append(hmm)
+        else:
+            hmms.append(p)
+    if not queries:
+        return iter(())
+    alphabet = queries[0].alphabet
+
+    backend = options.pop("backend", "cuda")
+    if backend != "oracle":
+        return iter(_scan_via_engine(hmms, queries, alphabet, background,
+                                     callback, options, dev, engine))
+
+    def gen():
+        for q in queries:
+            pli = Pipeline(alphabet, background, **options)
+            th = pli.scan_seq(q, hmms)
+            if callback is not None:
+                callback(q, len(queries))
+            yield th
+    return gen()
+
+
+# pyhmmer_tpu/hmmer/__init__.py:_scan_via_engine, with the engine on
+# ``device``
+def _scan_via_engine(hmms, queries, alphabet, background, callback,
+                     options, device, engine=None):
+    import copy as _copy
+
+    block = DigitalSequenceBlock(alphabet, queries)
+    # a caller's engine keeps its configured models across calls (one
+    # resident profile database, many query batches)
+    eng = engine or SearchEngine(alphabet, background, device=device,
+                                 **options)
+    per_hmm = eng.search(hmms, block)
+    cutoff_mode = options.get("bit_cutoffs") is not None
+
+    by_seq = [{h.name: h for h in th} for th in per_hmm]
+
+    # one options dict drives every per-model search, so the thresholds
+    # are uniform; check it once
+    _THRESH_ATTRS = ("E", "domE", "T", "domT", "incE", "incdomE",
+                     "incT", "incdomT", "domZ", "domZ_setby")
+    if per_hmm:
+        check = ["E", "domE", "T", "domT", "incE", "incdomE", "incT",
+                 "incdomT", "domZ_setby"]
+        if per_hmm[0].domZ_setby == "option":
+            check.append("domZ")   # auto domZ legitimately varies
+        for attr in check:
+            v0 = getattr(per_hmm[0], attr)
+            for other in per_hmm[1:]:
+                if getattr(other, attr) != v0:
+                    raise ValueError(
+                        f"non-uniform per-model threshold {attr!r} in "
+                        "hmmscan transpose; per-model options are not "
+                        "supported by the engine route")
+
+    out = []
+    nres_db = sum(h.M for h in hmms)
+    for q in queries:
+        th = TopHits()
+        th._mode = "scan"
+        th.query_name = q.name
+        th.query_accession = q.accession or None
+        th.query_length = len(q)
+        # scan accounting: the targets are the models
+        th.nmodels = len(hmms)
+        th.nnodes = nres_db
+        th.nseqs = 1
+        th.nres = len(q)
+        th.Z = float(len(hmms))
+        th.Z_setby = "ntargets"
+        src = per_hmm[0] if per_hmm else None
+        if src is not None:
+            for attr in _THRESH_ATTRS:
+                setattr(th, attr, getattr(src, attr))
+        for mi, hmm in enumerate(hmms):
+            h = by_seq[mi].get(q.name)
+            if h is None:
+                continue
+            nh = Hit(th, hmm.name, hmm.accession or None,
+                     hmm.description or None, hmm.M,
+                     score=h.score, pre_score=h.pre_score,
+                     sum_score=h.sum_score, lnP=h.lnP,
+                     nexpected=h.nexpected, nregions=h.nregions,
+                     nclustered=h.nclustered, noverlaps=h.noverlaps,
+                     nenvelopes=h.nenvelopes)
+            for d in h.domains:
+                nd = _copy.copy(d)
+                nd.hit = nh
+                nh.domains.append(nd)
+            nh.best_domain_idx = h.best_domain_idx
+            if cutoff_mode:
+                # each model's search applied its own GA/TC/NC cutoffs
+                nh.reported = h.reported
+                nh.included = h.included
+                for nd, d in zip(nh.domains, h.domains):
+                    nd.flags = d.flags
+            th.hits.append(nh)
+        th.sort_by_key()
+        if cutoff_mode:
+            if th.domZ_setby == "ntargets":
+                th.domZ = float(sum(1 for h in th.hits if h.reported))
+        else:
+            th.threshold()
+        out.append(th)
+        if callback is not None:
+            callback(q, len(queries))
+    return out
+
+
 def phmmer(queries, sequences, *, device="cuda", callback=None,
            builder: Optional[Builder] = None, device_rows: bool = False,
            **options) -> Iterator[TopHits]:
@@ -197,3 +342,50 @@ def jackhmmer(queries, sequences, *, max_iterations: int = 5,
                 callback(q, len(queries))
             yield out
     return gen()
+
+
+def nhmmer(queries, sequences, *, device="cuda", callback=None,
+           builder: Optional[Builder] = None, **options
+           ) -> Iterator[TopHits]:
+    """Search DNA/RNA queries against long nucleotide targets with the
+    long-targets pipeline (``pyhmmer_tpu.hmmer.nhmmer``); yields one
+    :class:`TopHits` per query, in query order.  Queries may be
+    :class:`HMM`, :class:`DigitalSequence` or :class:`DigitalMSA`
+    objects (sequence and MSA queries are built, and calibrated on
+    ``device``, with nhmmer's window parameters); the targets an
+    in-memory block or a digital :class:`SequenceFile`, whose genome
+    windows are streamed off disk.  The subwindow gates run on the
+    kernels on a CUDA ``device`` and on the host path on the CPU
+    (:class:`~pyhmmer_tpu_torch.plan7.longtargets.LongTargetsPipeline`)."""
+    dev = resolve_device(device)
+    if isinstance(queries, (HMM, DigitalSequence, DigitalMSA)):
+        queries = [queries]
+    queries = list(queries)
+    if not queries:
+        return iter(())
+    # a digital SequenceFile streams genome windows off disk inside the
+    # long-targets pipeline; anything else is materialized as a block
+    if isinstance(sequences, SequenceFile) and sequences.digital:
+        block = sequences
+    else:
+        block = _target_block(sequences)
+    window_length = options.get("window_length")
+    window_beta = options.get("window_beta")
+
+    def run():
+        for q in queries:
+            pli = LongTargetsPipeline(block.alphabet, device=dev, **options)
+            if isinstance(q, HMM):
+                th = pli.search_hmm(q, block)
+            else:
+                bld = (builder or Builder(
+                    block.alphabet, window_length=window_length,
+                    window_beta=window_beta, device=dev)).copy()
+                if isinstance(q, DigitalMSA):
+                    th = pli.search_msa(q, block, builder=bld)
+                else:
+                    th = pli.search_seq(q, block, builder=bld)
+            if callback is not None:
+                callback(q, len(queries))
+            yield th
+    return run()

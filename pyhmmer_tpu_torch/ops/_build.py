@@ -55,6 +55,15 @@ SIGNATURES = {
     # npairs, Kp, S, out, stream
     "fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P],
+    # the wide route: the same, with Mk for S and a scratch buffer and
+    # its CTA count before the stream (msv: after biaslog; vit and fwd:
+    # after out, vit without a route)
+    "msv_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _I, _P],
+    "vit_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _P, _P, _I, _P],
+    "fwd_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _P, _P, _I, _P],
     # codes, Lmax, lens, lm, emis, trans, pair_p, pair_row, npairs, Kp,
     # S, route, frows, fsc, terms, bsc, stream
     "rows_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

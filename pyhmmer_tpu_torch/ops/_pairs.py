@@ -7,14 +7,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .batch import NEGMASS, STRIPES, packed_stripes
+from .batch import (CTA_THREADS, NEGMASS, STRIPES, packed_stripes,
+                    stripe_width)
+
+#: CTAs a SM of the wide route's grid (each walks over pairs)
+CTAS_PER_SM = 2
+
+
+def wide_width(Mk: int) -> bool:
+    """Whether ``Mk`` is a model width of the wide route: past the
+    widest stripe, a multiple of ``CTA_THREADS``."""
+    return Mk % CTA_THREADS == 0 and not stripe_width(Mk)
+
+
+def cta_grid(device, npairs: int) -> int:
+    """CTAs of a wide-route launch of ``npairs`` pairs: at most
+    :data:`CTAS_PER_SM` a SM of ``device``, each with a scratch buffer
+    of its own."""
+    import torch.cuda
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(npairs, CTAS_PER_SM * sms))
 
 
 def check_tensors(want: dict, table=None) -> None:
     """Raise unless every ``name: (tensor, dtype, shape or None)`` of
     ``want`` has that dtype and shape, lies on the first tensor's device
-    and is contiguous, and the striped [P, Kp, S, 32] ``table`` (if
-    given) has a compiled stripe width."""
+    and is contiguous, and ``table`` (if given) is a striped [P, Kp, S,
+    32] table of a compiled stripe width or the wide route's [P, Kp,
+    Mk]."""
     device = next(iter(want.values()))[0].device
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype:
@@ -26,8 +46,14 @@ def check_tensors(want: dict, table=None) -> None:
             raise ValueError(f"{name} is on {t.device}, not {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if table is not None and (table.dim() != 4 or table.shape[3] != 32
-            or table.shape[2] not in STRIPES or table.shape[1] > 32):
+    if table is None:
+        return
+    if table.dim() == 3:
+        ok = wide_width(table.shape[2])
+    else:
+        ok = (table.dim() == 4 and table.shape[3] == 32
+              and table.shape[2] in STRIPES)
+    if not ok or table.shape[1] > 32:
         raise ValueError(f"unsupported table shape {tuple(table.shape)}")
 
 
@@ -39,26 +65,35 @@ def check_packed(codes, lens, lm, emis, trans, wide_s: int,
     ``FWD_WIDE_S`` or ``VIT_WIDE_S``), from ``wide_s`` on the wide layout
     ``emis`` [P, Kp, 2, S, 32] and ``trans`` [P, 8, S, 32]
     (``ops/batch.py``: the kernel picks the layout from ``S``, so a table
-    in the other one would be misread); ``more``, the caller's other
-    arguments as :func:`check_tensors` takes them."""
+    in the other one would be misread), and past the widest stripe the
+    wide route's ``emis`` [P, Kp, 2, Mk] and ``trans`` [P, 8, Mk];
+    ``more``, the caller's other arguments as :func:`check_tensors`
+    takes them."""
     B, _ = codes.shape
     P, Kp = emis.shape[:2]
-    S = packed_stripes(trans)
-    if S not in STRIPES or Kp > 32 or trans.dim() not in (4, 5):
-        raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
-    wide = S >= wide_s
-    if (trans.dim() == 4) != wide:
-        raise ValueError(
-            f"tables at {S} slots a lane must take the "
-            f"{'wide' if wide else 'packed'} layout (wide from {wide_s})")
+    if trans.dim() == 3:
+        Mk = trans.shape[2]
+        if not wide_width(Mk) or Kp > 32:
+            raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
+        shapes = (P, Kp, 2, Mk), (P, 8, Mk)
+    else:
+        S = packed_stripes(trans)
+        if S not in STRIPES or Kp > 32 or trans.dim() not in (4, 5):
+            raise ValueError(
+                f"unsupported table shape {tuple(emis.shape)}")
+        wide = S >= wide_s
+        if (trans.dim() == 4) != wide:
+            raise ValueError(
+                f"tables at {S} slots a lane must take the "
+                f"{'wide' if wide else 'packed'} layout (wide from "
+                f"{wide_s})")
+        shapes = (((P, Kp, 2, S, 32), (P, 8, S, 32)) if wide
+                  else ((P, Kp, S, 32, 2), (P, S, 2, 32, 4)))
     check_tensors({"codes": (codes, torch.uint8, None),
                    "lens": (lens, torch.int32, (B,)),
                    "lm": (lm, torch.float32, (B, 4)),
-                   "emis": (emis, torch.float32,
-                            (P, Kp, 2, S, 32) if wide
-                            else (P, Kp, S, 32, 2)),
-                   "trans": (trans, torch.float32,
-                             (P, 8, S, 32) if wide else (P, S, 2, 32, 4)),
+                   "emis": (emis, torch.float32, shapes[0]),
+                   "trans": (trans, torch.float32, shapes[1]),
                    **more})
 
 

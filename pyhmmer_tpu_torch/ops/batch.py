@@ -31,6 +31,15 @@ warp lane ``l`` reads its ``S`` slots with coalesced loads:
   filter kernel and (in the narrow layout: S <= 24) by the survivor-rows
   kernels.
 
+Models wider than ``32 * STRIPES[-1]`` (4,096) slots take the wide
+route (:func:`stripe_width` is 0 there): one CTA of ``CTA_THREADS``
+threads a (profile, target) pair, each thread owning a contiguous run of
+``Mk / CTA_THREADS`` slots, ``Mk`` padded to a multiple of
+``CTA_THREADS`` (:func:`kernel_width`).  Its tables are unstriped:
+``msv_w16`` [P, Kp, Mk], ``vit_emis`` and ``fwd_emis`` [P, Kp, 2, Mk]
+(the M then the I scores), ``vit_trans`` and ``fwd_trans`` [P, 8, Mk]
+(transition ``t`` of slot ``s`` as above).
+
 ``SeqDevice`` holds one length bucket of target sequences on an explicit
 device.  The JAX package imports JAX at load, so the packing is
 re-implemented here from its numpy parts, field for field.
@@ -55,6 +64,10 @@ NEGMASS = -1e30
 #: lane stripe widths the kernels are compiled for (model slots per lane)
 STRIPES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 
+#: threads a pair on the wide route (``csrc/common.cuh:CTA_THREADS``);
+#: its model width is padded to a multiple of this
+CTA_THREADS = 512
+
 #: stripe widths from which the Forward and the Viterbi kernel take the
 #: wide table layout (``csrc/fwd.cu:FWD_WIDE_S``, ``csrc/vit.cu:VIT_WIDE_S``)
 FWD_WIDE_S = 32
@@ -74,12 +87,20 @@ def round_up(x: int, m: int) -> int:
 
 
 def stripe_width(Mp: int) -> int:
-    """Smallest compiled stripe ``S`` with ``32 * S >= Mp``."""
+    """Smallest compiled stripe ``S`` with ``32 * S >= Mp``, or 0 past
+    the widest, where the kernels take the wide route."""
     for s in STRIPES:
         if 32 * s >= Mp:
             return s
-    raise ValueError(f"model width Mp={Mp} exceeds the kernels' "
-                     f"{32 * STRIPES[-1]} slots")
+    return 0
+
+
+def kernel_width(Mp: int) -> int:
+    """The kernels' model width ``Mk`` for a padded width ``Mp``: ``32 *
+    stripe_width(Mp)``, or on the wide route ``Mp`` rounded up to a
+    multiple of :data:`CTA_THREADS`."""
+    S = stripe_width(Mp)
+    return 32 * S if S else round_up(Mp, CTA_THREADS)
 
 
 def pack_profiles(profiles: Sequence, Mp: Optional[int] = None) -> dict:
@@ -163,8 +184,17 @@ def unstriped(t: torch.Tensor) -> torch.Tensor:
 
 def packed_stripes(trans: torch.Tensor) -> int:
     """The stripe width ``S`` of a packed ``fwd_trans`` or ``vit_trans``
-    (either layout)."""
+    (either layout), 0 for the wide route's [P, 8, Mk]."""
+    if trans.dim() == 3:
+        return 0
     return trans.shape[2] if trans.dim() == 4 else trans.shape[1]
+
+
+def table_width(trans: torch.Tensor) -> int:
+    """The model width ``Mk`` of a ``fwd_trans`` or ``vit_trans`` in any
+    layout."""
+    S = packed_stripes(trans)
+    return 32 * S if S else trans.shape[-1]
 
 
 def unpacked(emis: torch.Tensor, trans: torch.Tensor):
@@ -172,6 +202,8 @@ def unpacked(emis: torch.Tensor, trans: torch.Tensor):
     ``fwd_trans``, or ``vit_emis`` and ``vit_trans``, in either layout)
     as plain [P, Kp, Mk] emission tables (M, I) and a [P, 8, Mk]
     transition table."""
+    if trans.dim() == 3:                       # the wide route
+        return emis[:, :, 0], emis[:, :, 1], trans
     if trans.dim() == 4:                       # the wide layout
         return (unstriped(emis[:, :, 0]), unstriped(emis[:, :, 1]),
                 unstriped(trans))
@@ -184,8 +216,11 @@ def unpacked(emis: torch.Tensor, trans: torch.Tensor):
 def packed(em: np.ndarray, ei: np.ndarray, tr: np.ndarray, wide_s: int):
     """[P, Kp, Mk] emission tables (M, I) and a [P, 8, Mk] transition
     table in the packed layouts (module docstring), the wide one from
-    ``wide_s`` slots a lane on, contiguous."""
+    ``wide_s`` slots a lane on, unstriped on the wide route,
+    contiguous."""
     P, _, Mk = em.shape
+    if not stripe_width(Mk):
+        return np.ascontiguousarray(np.stack([em, ei], axis=2)), tr
     if Mk // 32 >= wide_s:
         emis = np.stack([striped(em), striped(ei)], axis=2)
         trans = striped(tr)
@@ -198,10 +233,10 @@ def packed(em: np.ndarray, ei: np.ndarray, tr: np.ndarray, wide_s: int):
 
 def kernel_tables(f: dict) -> dict:
     """The stage kernels' tables (see the module docstring), padded to
-    ``Mk = 32 * stripe_width(Mp)`` and striped, from the shared fields
-    ``f``."""
+    ``Mk = kernel_width(Mp)`` and striped (unstriped on the wide route),
+    from the shared fields ``f``."""
     P, Kp, Mp = f["msc"].shape
-    Mk = 32 * stripe_width(Mp)
+    Mk = kernel_width(Mp)
     nonres = Kp - 2                   # Easel: '*' sits just below '~'
 
     cost = np.full((P, Kp, Mk), 255, dtype=np.int16)
@@ -235,7 +270,9 @@ def kernel_tables(f: dict) -> dict:
     vit_emis, vit_trans = packed(msc, isc, tr, VIT_WIDE_S)
     fwd_emis, fwd_trans = packed(_xexp(msc), _xexp(isc), _xexp(tr),
                                  FWD_WIDE_S)
-    return {"msv_w16": np.ascontiguousarray(striped(w16)),
+    if stripe_width(Mk):
+        w16 = striped(w16)
+    return {"msv_w16": np.ascontiguousarray(w16),
             "msv_scal": scal, "msv_odds": odds, "vit_emis": vit_emis,
             "vit_trans": vit_trans, "fwd_emis": fwd_emis,
             "fwd_trans": fwd_trans}
@@ -262,7 +299,9 @@ class ProfileBatch(nn.Module):
             setattr(self, name, np.ascontiguousarray(arrays[name]))
         for name, a in kernel_tables(arrays).items():
             self.register_buffer(name, torch.from_numpy(a))
+        #: stripe width (0: the wide route) and kernel model width
         self.S = stripe_width(self.Mp)
+        self.Mk = kernel_width(self.Mp)
 
     @property
     def device(self) -> torch.device:

@@ -37,7 +37,8 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     length model; ``emis`` f32 (M, I) emission odds and ``trans`` f32
     transition odds, packed ([P, Kp, S, 32, 2] and [P, S, 2, 32, 4], or
     from ``S = FWD_WIDE_S`` on [P, Kp, 2, S, 32] and [P, 8, S, 32]:
-    ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
+    past 4,096 slots the wide route's [P, Kp, 2, Mk] and [P, 8,
+    Mk]: ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
     ``pairs`` None or the int32 [3, npairs] list of ``need``
     (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
     _pairs.check_packed(codes, lens, lm, emis, trans, FWD_WIDE_S,
@@ -52,6 +53,18 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, pairs)
     npairs = int(pair_p.shape[0])
     P_ = _build.ptr
+    if S == 0:                                # the wide route
+        Mk = trans.shape[2]
+        nctas = _pairs.cta_grid(codes.device, npairs)
+        scratch = torch.empty((nctas, 6, Mk), dtype=torch.float32,
+                              device=codes.device)
+        err = _build.lib().fwd_cta_launch(
+            P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis),
+            P_(trans), P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp,
+            Mk, P_(out), P_(scratch), nctas, _build.stream_ptr(codes))
+        _build.check(err, "fwd_cta_launch")
+        launches += 1
+        return out
     err = _build.lib().fwd_launch(
         P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),
         P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp, S, P_(out),

@@ -9,7 +9,10 @@ have saturated) and ``biaslog`` (the bias filter's log score without the
 null term), with the same meaning as the Pallas outputs.  The kernel
 keeps its cells in 16 bits: ``ovf`` is the plain version's everywhere and
 ``dx`` on every pair it does not flag (a flagged pair's ``dx`` is
-ignored by the engine; see the note in ``csrc/msv.cu``).
+ignored by the engine; see the note in ``csrc/msv.cu``).  A model wider
+than 4,096 slots (an unstriped [P, Kp, Mk] ``w16``) takes the wide route,
+``msv_cta_kernel``, in int32: there ``dx`` is the plain version's on
+every pair.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def _check(codes, lens, w16, scal, odds, tjb, p1):
 def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
     """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``w16`` [P, Kp, S,
     32] int16 pre-biased quantized costs ``bias - cost``, striped (cost
-    255 in padding); ``scal`` [P, 4] (bias, tec, tbm, -); ``odds`` [P, Kp]
+    255 in padding), or [P, Kp, Mk] on the wide route; ``scal`` [P, 4] (bias, tec, tbm, -); ``odds`` [P, Kp]
     bias-filter odds (0 at the nonresidue code); ``tjb``, ``p1`` [B] f32.
     Returns (dx, ovf, biaslog) [P, B]."""
     _check(codes, lens, w16, scal, odds, tjb, p1)
@@ -60,16 +63,27 @@ def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
         raise ValueError(f"unsupported device {codes.device}")
     global launches
     B, Lmax = codes.shape
-    P, Kp, S, _ = w16.shape
+    P, Kp = w16.shape[:2]
     dx = torch.empty((P, B), dtype=torch.float32, device=codes.device)
     ovf = torch.empty_like(dx)
     biaslog = torch.empty_like(dx)
     P_ = _build.ptr
-    err = _build.lib().msv_launch(
-        P_(codes), Lmax, P_(lens), P_(w16), P_(scal), P_(odds), P_(tjb),
-        P_(p1), B, P, Kp, S, P_(dx), P_(ovf), P_(biaslog),
-        _build.stream_ptr(codes))
-    _build.check(err, "msv_launch")
+    if w16.dim() == 3:                        # the wide route
+        Mk = w16.shape[2]
+        nctas = _pairs.cta_grid(codes.device, P * B)
+        scratch = torch.empty((nctas, 2, Mk), dtype=torch.int32,
+                              device=codes.device)
+        err = _build.lib().msv_cta_launch(
+            P_(codes), Lmax, P_(lens), P_(w16), P_(scal), P_(odds),
+            P_(tjb), P_(p1), B, P, Kp, Mk, P_(dx), P_(ovf), P_(biaslog),
+            P_(scratch), nctas, _build.stream_ptr(codes))
+        _build.check(err, "msv_cta_launch")
+    else:
+        err = _build.lib().msv_launch(
+            P_(codes), Lmax, P_(lens), P_(w16), P_(scal), P_(odds),
+            P_(tjb), P_(p1), B, P, Kp, w16.shape[2], P_(dx), P_(ovf),
+            P_(biaslog), _build.stream_ptr(codes))
+        _build.check(err, "msv_launch")
     launches += 1
     return dx, ovf, biaslog
 
@@ -80,7 +94,7 @@ def msv_plain(codes, lens, w16, scal, odds, tjb, p1):
     exact, no 16-bit limit)."""
     dev = codes.device
     B = codes.shape[0]
-    w = unstriped(w16).to(torch.float32)          # [P, Kp, Mk]
+    w = (w16 if w16.dim() == 3 else unstriped(w16)).to(torch.float32)
     P, Kp, Mk = w.shape
     bias = scal[:, 0:1]                           # [P, 1]
     tec = scal[:, 1:2]

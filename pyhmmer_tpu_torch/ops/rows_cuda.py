@@ -102,8 +102,8 @@ def _scores(codes, lens, lm, emis, trans, pair_p, pair_row, route: str):
                         {"pair_p": (pair_p, torch.int32, (G,)),
                          "pair_row": (pair_row, torch.int32, (G,))})
     Kp, S = emis.shape[1], packed_stripes(trans)
-    if S > MAX_S:
-        raise ValueError(f"stripe width {S} exceeds the rows kernels' "
+    if S == 0 or S > MAX_S:
+        raise ValueError(f"stripe width {S or 'of the wide route'} exceeds the rows kernels' "
                          f"{MAX_S} (model width {32 * MAX_S})")
     if codes.device.type == "cpu":
         return rows_plain(codes, lens, lm, emis, trans, pair_p, pair_row)

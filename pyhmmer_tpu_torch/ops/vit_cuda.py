@@ -28,7 +28,8 @@ LOG_HALF = math.log(0.5)
 #: or several; ``auto``, what :func:`vit_scores` takes, picks by the model
 #: width and, at 16 and 24 slots a lane, by whether the launch's pairs fit
 #: the card at once, so there a pair's score may move by a few ulps with
-#: the launch's size (the routes add the D->D sums in another order)
+#: the launch's size (the routes add the D->D sums in another order);
+#: models over 4,096 slots have one route, ``vit_cta_kernel``
 ROUTES = {"auto": 0, "warp": 1, "block": 2}
 
 
@@ -46,7 +47,8 @@ def vit_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     f32 (M, I) log emission scores and ``trans`` f32 log transitions,
     packed ([P, Kp, S, 32, 2] and [P, S, 2, 32, 4], or from ``S =
     VIT_WIDE_S`` on [P, Kp, 2, S, 32] and [P, 8, S, 32]:
-    ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
+    past 4,096 slots the wide route's [P, Kp, 2, Mk] and [P, 8,
+    Mk]: ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
     ``pairs`` None or the int32 [3, npairs] list of ``need``
     (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
     return _scores(codes, lens, lm, emis, trans, rows, need, pairs, "auto")
@@ -67,6 +69,20 @@ def _scores(codes, lens, lm, emis, trans, rows, need, pairs, route: str):
     pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, pairs)
     npairs = int(pair_p.shape[0])
     P_ = _build.ptr
+    if S == 0:                                # the wide route
+        if route != "auto":
+            raise ValueError(f"route {route!r}: the wide route has one")
+        Mk = trans.shape[2]
+        nctas = _pairs.cta_grid(codes.device, npairs)
+        scratch = torch.empty((nctas, 6, Mk), dtype=torch.float32,
+                              device=codes.device)
+        err = _build.lib().vit_cta_launch(
+            P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis),
+            P_(trans), P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp,
+            Mk, P_(out), P_(scratch), nctas, _build.stream_ptr(codes))
+        _build.check(err, "vit_cta_launch")
+        launches += 1
+        return out
     err = _build.lib().vit_launch(
         P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),
         P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp, S,

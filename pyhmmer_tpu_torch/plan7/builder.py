@@ -413,7 +413,6 @@ class Builder:
         fprob = f / f.sum()
         prof = Profile(hmm.M, hmm.alphabet).configure(hmm, background,
                                                       self.EmL)
-        # raises ValueError past the kernels' widest model (4096 slots)
         pb = OB.ProfileBatch([prof], Mp=OB.round_up(hmm.M, 32)).to(
             self.device)
 

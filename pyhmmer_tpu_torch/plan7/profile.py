@@ -219,6 +219,10 @@ class Profile:
         out.__dict__.pop("_native_tensors", None)
         return out
 
+    def to_optimized(self):
+        from .optimized import OptimizedProfile
+        return OptimizedProfile.convert(self)
+
     def __repr__(self) -> str:
         return (f"<Profile name={self.name!r} M={self.M} L={self.L} "
                 f"multihit={self.multihit}>")

@@ -14,7 +14,7 @@ from pyhmmer_tpu import hmmer as jax_hmmer
 import pyhmmer_tpu_torch
 from pyhmmer_tpu_torch import _synthetic as syn
 from pyhmmer_tpu_torch.hmmer import JACKHMMER_ENGINE_MIN_TARGETS
-from test_torch_host import jax_block, rows
+from test_torch_host import jax_block, jax_hmm, rows
 
 torch.set_num_threads(1)
 
@@ -61,3 +61,60 @@ def test_jackhmmer_matches_jax(case):
         np.testing.assert_array_equal(g.msa.codes, w.msa.codes)
         np.testing.assert_array_equal(g.hmm.mat, w.hmm.mat)
     assert len(got[0].msa) > 1
+
+
+@pytest.fixture(scope="module")
+def scan_case():
+    """The 16 smoke models (their stored evparams) as the profile
+    database, and 30 seeded sequences with domains of them planted as
+    the queries; the JAX package's copies."""
+    models = syn.smoke_models()
+    seqs, planted = syn.make_targets(models[:8], 30, seed=41, median=200.0,
+                                     sigma=0.4, plants=syn.PLANTS[:2])
+    return models, seqs, [jax_hmm(h) for h in models], jax_block(seqs)
+
+
+def scan_rows(results):
+    return [(th.query_name, th.Z, rows(th)) for th in results]
+
+
+def test_hmmscan_matches_jax(scan_case):
+    """Rows equal the JAX package's, with Z = the number of models."""
+    models, seqs, jmodels, jseqs = scan_case
+    got = list(pyhmmer_tpu_torch.hmmscan(seqs, models, device="cpu"))
+    want = list(jax_hmmer.hmmscan(jseqs, jmodels))
+    assert scan_rows(got) == scan_rows(want)
+    assert len(got) == len(seqs) and all(th.Z == 16.0 for th in got)
+    assert sum(len(th.reported) for th in got) >= 8
+
+
+def test_hmmscan_optimized_profiles_match_jax(scan_case):
+    """``OptimizedProfile`` inputs (each carries its core model), and
+    the sequential ``Pipeline.scan_seq`` (``backend="oracle"``) on a few
+    queries."""
+    from pyhmmer_tpu.plan7.background import Background as JBackground
+    from pyhmmer_tpu.plan7.profile import Profile as JProfile
+    from pyhmmer_tpu_torch.plan7 import Background, Profile
+    models, seqs, jmodels, jseqs = scan_case
+    oms = [Profile(h.M, h.alphabet).configure(
+        h, Background(h.alphabet), 400).to_optimized() for h in models]
+    joms = [JProfile(h.M, h.alphabet).configure(
+        h, JBackground(h.alphabet), 400).to_optimized() for h in jmodels]
+    got = list(pyhmmer_tpu_torch.hmmscan(seqs, oms, device="cpu"))
+    want = list(jax_hmmer.hmmscan(jseqs, joms))
+    assert scan_rows(got) == scan_rows(want)
+    few = list(pyhmmer_tpu_torch.hmmscan(seqs[:3], models, device="cpu",
+                                         backend="oracle"))
+    assert scan_rows(few) == scan_rows(got[:3])
+
+
+def test_hmmscan_reuses_one_engine(scan_case):
+    """One engine across two calls gives the rows of a single call."""
+    models, seqs, _, _ = scan_case
+    eng = pyhmmer_tpu_torch.SearchEngine(seqs.alphabet, device="cpu")
+    first = list(pyhmmer_tpu_torch.hmmscan(seqs[:15], models, engine=eng))
+    cached = len(eng._model_cache)
+    second = list(pyhmmer_tpu_torch.hmmscan(seqs[15:], models, engine=eng))
+    assert len(eng._model_cache) == cached > 0
+    once = list(pyhmmer_tpu_torch.hmmscan(seqs, models, device="cpu"))
+    assert scan_rows(first + second) == scan_rows(once)

@@ -256,8 +256,29 @@ def test_round_up(x, m, want):
 
 
 def test_stripe_width():
+    """Past the widest stripe (4,096 slots) the kernels take the wide
+    route: stripe width 0, the width padded to a multiple of
+    ``CTA_THREADS``, and a ``ProfileBatch`` there packs the unstriped
+    tables (``ops/batch.py``)."""
     assert [TB.stripe_width(Mp) for Mp in (32, 64, 96, 384, 1024, 2048,
                                            4096)] \
         == [1, 2, 3, 12, 32, 64, 128]
-    with pytest.raises(ValueError):
-        TB.stripe_width(4097)
+    assert [TB.kernel_width(Mp) for Mp in (4096, 4097, 4224, 9024,
+                                           100_000)] \
+        == [4096, 4608, 4608, 9216, 100_352]
+    assert TB.stripe_width(4097) == 0
+    h = syn.sample_models((4100,), seed=4)[0]
+    prof = Profile(h.M, h.alphabet).configure(h, Background(h.alphabet),
+                                              400)
+    tpb = TB.ProfileBatch([prof], Mp=4224)
+    Kp = h.alphabet.Kp
+    assert (tpb.S, tpb.Mk) == (0, 4608)
+    assert tpb.msv_w16.shape == (1, Kp, 4608)
+    for name in ("vit", "fwd"):
+        assert getattr(tpb, name + "_emis").shape == (1, Kp, 2, 4608)
+        assert getattr(tpb, name + "_trans").shape == (1, 8, 4608)
+        assert TB.packed_stripes(getattr(tpb, name + "_trans")) == 0
+    em, ei, tr = TB.unpacked(tpb.vit_emis, tpb.vit_trans)
+    assert torch.equal(em[0, :, :4100], torch.from_numpy(
+        np.maximum(prof.msc[:, 1:], TB.NEGMASS).astype(np.float32)))
+    assert (em[0, :, 4224:] == TB.NEGMASS).all()

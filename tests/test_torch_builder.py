@@ -163,8 +163,12 @@ def test_copy_carries_every_option(aa):
 
 
 def test_query_wider_than_the_kernels_raises(aa):
-    """The kernels compile models up to 4,096 slots; a longer query
-    raises the width error from the Builder (no CPU fallback)."""
-    (q,), _ = sequences(aa, [4097], seed=1)
-    with pytest.raises(ValueError, match="exceeds the kernels' 4096"):
-        Builder(aa, device="cpu").build(q, Background(aa))
+    """A query wider than the kernels' 4,096-slot stripes no longer
+    raises: its calibration scores the random sequences on the wide
+    route's layout (here its plain versions), and the model and its
+    evparams are the JAX package's."""
+    (q,), (jq,) = sequences(aa, [4200], seed=1)
+    got, prof, _ = Builder(aa, device="cpu").build(q, Background(aa))
+    want, _, _ = JBuilder(jq.alphabet).build(jq, JBackground(jq.alphabet))
+    assert got.M == 4200
+    assert_same_model(got, want)

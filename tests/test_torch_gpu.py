@@ -5,8 +5,10 @@ its kernel; Forward <= 5e-3 nats; the survivor
 rows' scores within 2e-3 nats and their decoded rows within the JAX
 package's bars; the f32 summation order being the only difference);
 ``Builder.calibrate`` on the card against the CPU (MSV mu, tau and
-lambda equal, Viterbi mu within 1e-3 bits) and phmmer on the card
-against the CPU (identical rows).
+lambda equal, Viterbi mu within 1e-3 bits), phmmer on the card
+against the CPU (identical rows), the wide route (models over 4,096
+slots) against the plain versions, and nhmmer with its gates on the card
+against the CPU's host path (identical rows).
 Marked ``gpu``: they skip where there is no CUDA device.  On the card,
 where JAX is not installed, run them without the repository's
 conftest::
@@ -541,3 +543,63 @@ def test_phmmer_on_card_matches_cpu(cuda):
     assert [rows(th) for th in on_card] == [rows(th) for th in on_cpu]
     for q, th in zip(queries, on_card):
         assert th.reported[0].name == q.name
+
+
+@pytest.mark.parametrize("M", [4200, 9000])
+def test_wide_route_matches_plain(cuda, M):
+    """Models over 4,096 slots (one CTA a pair): MSV dx and ovf identical
+    on every pair (int32 cells), biaslog within 1e-4 nats, Viterbi and
+    Forward within their bars."""
+    h = syn.sample_models((M,), seed=M + 1)[0]
+    aa = h.alphabet
+    pb = TB.ProfileBatch([Profile(M, aa).configure(h, Background(aa), 400,
+                                                  multihit=True)],
+                         Mp=TB.round_up(M, 32)).to(cuda)
+    assert pb.S == 0
+    codes, lengths = syn.make_lanes([h], 40, 300, seed=M + 2)
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    args = (dev.codes, dev.lens, pb.msv_w16, pb.msv_scal, pb.msv_odds,
+            dev.tjb, dev.p1)
+    before = msv_cuda.launches
+    dx, ovf, bl = msv_cuda.msv_scores(*args)
+    assert msv_cuda.launches == before + 1
+    dx2, ovf2, bl2 = msv_cuda.msv_plain(*args)
+    assert torch.equal(dx, dx2) and torch.equal(ovf, ovf2)
+    assert bool(ovf.any()) and (bl - bl2).abs().max().item() <= 1e-4
+    rows = torch.arange(0, 40, 2, device=cuda)
+    need = torch.ones((1, 20), dtype=torch.bool, device=cuda)
+    for fn, plain, emis, trans, tol in (
+            (fwd_cuda.fwd_scores, fwd_cuda.fwd_plain, pb.fwd_emis,
+             pb.fwd_trans, FWD_TOL),
+            (vit_cuda.vit_scores, vit_cuda.vit_plain, pb.vit_emis,
+             pb.vit_trans, VIT_TOL)):
+        a = (dev.codes, dev.lens, dev.lm, emis, trans, rows, need)
+        k, p = fn(*a), plain(*a)
+        assert (k - p).abs().max().item() <= tol
+
+
+def test_nhmmer_on_card_matches_cpu(cuda, monkeypatch):
+    """nhmmer with its gates on the card (forced) against the CPU's host
+    path: the same rows."""
+    import pyhmmer_tpu_torch as pt
+    from pyhmmer_tpu_torch.plan7 import Builder
+    models = syn.sample_dna_models((150, 300), seed=3)
+    bld = Builder(models[0].alphabet, device=cuda)
+    for h in models:
+        bld.calibrate(h, Background(h.alphabet))
+    genome, _ = syn.make_genome(models, 2, 60_000, 2, seed=4)
+
+    def rows(th):
+        return [(h.name, round(h.score, 4), float(f"{h.evalue:.4g}"),
+                 h.best_domain.env_from, h.best_domain.env_to)
+                for h in th.reported]
+    monkeypatch.setenv("PYHMMER_TPU_NHMMER_DEVICE", "force")
+    before = (msv_cuda.launches, vit_cuda.launches, fwd_cuda.launches)
+    on_card = list(pt.nhmmer(models, genome, device=cuda))
+    after = (msv_cuda.launches, vit_cuda.launches, fwd_cuda.launches)
+    assert all(a > b for a, b in zip(after, before))
+    monkeypatch.setenv("PYHMMER_TPU_NHMMER_DEVICE", "0")
+    on_cpu = list(pt.nhmmer(models, genome, device="cpu"))
+    assert [rows(th) for th in on_card] == [rows(th) for th in on_cpu]
+    assert all(th.reported for th in on_card)

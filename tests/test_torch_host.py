@@ -309,7 +309,8 @@ def test_port_never_imports_the_jax_package():
     assert len(paths) > 35
     for new in ("_device", "plan7/builder", "plan7/fitting", "plan7/priors",
                 "plan7/tracealign", "plan7/iteration", "easel/msa",
-                "easel/containers", "easel/random"):
+                "easel/containers", "easel/random", "plan7/longtargets",
+                "plan7/optimized"):
         assert os.path.join(ROOT, "pyhmmer_tpu_torch", new + ".py") in paths
     bad = [(os.path.relpath(p, ROOT), m) for p in paths
            for m in imported_modules(p)
@@ -341,7 +342,18 @@ COPIES = {
     "plan7/evalues": ((), ()),
     "plan7/background": ((), ()),
     "plan7/hmm": (("HMM.write",), ()),
-    "plan7/profile": (("Profile.to_optimized",), ()),
+    "plan7/profile": ((), ()),
+    # the device gates on the port's kernels, chosen by the pipeline's
+    # device; no fallback to the host path (so no warning flag); the
+    # default Builder of sequence and MSA queries on the same device
+    "plan7/longtargets": (("_DEVICE_GATE_WARNED = False",),
+                          ("LongTargetsPipeline.__init__",
+                           "LongTargetsPipeline.search_seq",
+                           "LongTargetsPipeline.search_msa",
+                           "LongTargetsPipeline._flush_subwindows",
+                           "LongTargetsPipeline._device_gates")),
+    # pressed databases (plan7/pressed.py) are not in the port
+    "plan7/optimized": (("OptimizedProfile.write", "HMMPressedFile"), ()),
     "plan7/views": (("_ParamVector.as_vector",), ()),
     "plan7/ensemble": ((), ()),
 }
