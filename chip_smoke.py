@@ -77,16 +77,41 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 10. hmmscan: the 4,002 targets scanned against the 245-model stack, once
     warm and three timed runs, Z the number of models; the three
     targets with the most reported models against
-    ``Pipeline.scan_seq``;
-11. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
+    ``Pipeline.scan_seq``; then one scan of an ``hmmpress``ed copy of
+    the stack through ``HMMPressedFile``, its rows those of the scan of
+    the HMM list;
+11. cascade: ``parallel.mesh.ShardedCascade`` on a 2 x 2 mesh of the one
+    card, the 16 distinct models at one ``Mp`` against the 4,002
+    targets: MSV scores and overflow flags identical to one unsharded
+    launch, ``n_pass`` equal, Forward within 5e-3 nats of one unsharded
+    launch;
+12. sharded: ``sharded_search`` of the smoke search in 4 shards on the
+    card (one thread a shard, one shared host pool): its rows and Z
+    identical to phase 3's single-shot search, then three timed runs
+    (walls, shard walls, overlap factor; the counts read over the
+    last), then one run with the cascade forced and the rows stage on
+    against phase 4's single-shot one (the rows-on bars), so all four
+    kernel files run on the path; then ``sharded_nhmmer`` of phase 9's
+    models in 2 shards, its rows those of phase 9's single-shot runs;
+13. multihost: 2 ranks (``torch.distributed``, gloo on 127.0.0.1), each
+    a fresh interpreter with its engine on the card
+    (``parallel/_worker.py``), over the smoke search: both ranks' tables
+    identical to phase 3's; each rank's walls, record bytes and kernel
+    launches;
+14. entry: ``graft_entry.entry()``'s Forward step on the card against
+    the plain Forward on the same tensors (5e-3 nats), then
+    ``graft_entry.dryrun_multichip(4)`` over the one card (its own
+    checks and 2-process run);
+15. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
     was imported: the port runs on its own host layers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the kernels' JSON record (launches on the main
 path and per search path, error, times of the first parity shape, its
 bound), and the one before that the card's name and power limit.  Phases
-3 and 5-10 set every kernel's launch counter to 0 just before the run
-they count and read them just after.  A plain version that takes many
+3 and 5-14 set every kernel's launch counter to 0 just before the run
+they count and read them just after (the ranks of phase 13 count their
+own).  A plain version that takes many
 seconds (the 131,072-residue bucket, nhmmer's largest gate launch) is
 timed on its parity call alone.
 """
@@ -97,6 +122,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -108,15 +134,17 @@ import numpy as np  # noqa: E402
 
 from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
 from pyhmmer_tpu_torch import engine as E  # noqa: E402
-from pyhmmer_tpu_torch import (hmmscan, hmmsearch, jackhmmer,  # noqa: E402
-                               nhmmer, phmmer)
+from pyhmmer_tpu_torch import (hmmpress, hmmscan, hmmsearch,  # noqa: E402
+                               jackhmmer, nhmmer, phmmer)
+from pyhmmer_tpu_torch import graft_entry  # noqa: E402
 from pyhmmer_tpu_torch.easel import DigitalSequenceBlock  # noqa: E402
-from pyhmmer_tpu_torch.ops import _build  # noqa: E402
+from pyhmmer_tpu_torch.ops import _build, _pairs  # noqa: E402
 from pyhmmer_tpu_torch.ops import batch as B  # noqa: E402
 from pyhmmer_tpu_torch.ops import (fwd_cuda, msv_cuda, native,  # noqa: E402
                                    rows_cuda, vit_cuda)
+from pyhmmer_tpu_torch.parallel import _worker, mesh  # noqa: E402
 from pyhmmer_tpu_torch.plan7 import (Background, Builder,  # noqa: E402
-                                     Pipeline, Profile)
+                                     HMMPressedFile, Pipeline, Profile)
 
 NEG_LIVE = -1e29
 #: kernel-vs-plain bars (nats): f32 summation order only
@@ -739,24 +767,36 @@ def phase_rows_correctness(queries, targets):
     on, wall_on, marks = forced_search(queries, targets, True)
     if marks.get("n_rows_ext", 0) <= 0:
         fail("forced search: no pair took the device rows")
-    worst = 0.0
-    for a, b in zip(on, off):
-        name = a.query_name.decode()
-        if envelopes(a) != envelopes(b):
-            fail(f"{name}: rows-on hits or envelopes differ from rows off")
-        for n in ("n_past_msv", "n_past_bias", "n_past_vit", "n_past_fwd"):
-            if getattr(a, n) != getattr(b, n):
-                fail(f"{name}: {n} {getattr(a, n)} != {getattr(b, n)}")
-        for ha, hb in zip(a.reported, b.reported):
-            d = max(abs(ha.score - hb.score), abs(ha.bias - hb.bias))
-            if d >= ROWS_SCORE_TOL:
-                fail(f"{name}: {ha.name.decode()} score/bias off by {d}")
-            worst = max(worst, d)
+    worst = rows_close(on, off, "rows-on against rows off")
     say("rows_correctness", wall_off_s=wall_off, wall_on_s=wall_on,
         reported=sum(len(th.reported) for th in on),
         pairs_launched=marks.get("n_rows_pairs", 0),
         n_rows_ext=marks["n_rows_ext"], sent_back=marks.get("n_rows_back", 0),
         max_score_bias_diff=worst, bar=ROWS_SCORE_TOL)
+    return on
+
+
+def rows_close(a_list, b_list, what):
+    """Fail unless each query of ``a_list`` reports the hits, inclusion,
+    domain envelopes and pass counts of ``b_list``'s, with scores and
+    biases within :data:`ROWS_SCORE_TOL`; returns the largest score or
+    bias difference."""
+    worst = 0.0
+    for a, b in zip(a_list, b_list):
+        name = a.query_name.decode()
+        if envelopes(a) != envelopes(b):
+            fail(f"{name}: hits or envelopes differ ({what})")
+        for n in ("n_past_msv", "n_past_bias", "n_past_vit", "n_past_fwd"):
+            if getattr(a, n) != getattr(b, n):
+                fail(f"{name}: {n} {getattr(a, n)} != {getattr(b, n)} "
+                     f"({what})")
+        for ha, hb in zip(a.reported, b.reported):
+            d = max(abs(ha.score - hb.score), abs(ha.bias - hb.bias))
+            if d >= ROWS_SCORE_TOL:
+                fail(f"{name}: {ha.name.decode()} score/bias off by {d} "
+                     f"({what})")
+            worst = max(worst, d)
+    return worst
 
 
 def envelopes(th):
@@ -1132,7 +1172,8 @@ def phase_nhmmer(smi, parity):
     recorded), three timed runs (the counts read over the last); the
     rows equal the host path's (gates off) and every planted copy is
     found on its strand; the gate launch with the most cells against the
-    plain versions.  Returns the launches."""
+    plain versions.  Returns the launches, the calibrated models, the
+    genome and the last timed run's results."""
     models, genome, planted = syn.nhmmer_workload()
     dna = genome.alphabet
     bld, bg = Builder(dna, device="cuda"), Background(dna)
@@ -1210,15 +1251,16 @@ def phase_nhmmer(smi, parity):
         reported=[len(th.reported) for th in res], planted=len(planted),
         n_past=[(th.n_past_msv, th.n_past_bias, th.n_past_vit,
                  th.n_past_fwd) for th in res])
-    return launches
+    return launches, models, genome, res
 
 
 def phase_hmmscan(smi, queries, targets):
     """hmmscan of the 4,002 targets against the 245-model stack: once
     warm, three timed runs (the counts read over the last); for the
     three targets with the most reported models (planted domains) the
-    rows equal the sequential ``Pipeline.scan_seq``'s.  Returns the
-    launches."""
+    rows equal the sequential ``Pipeline.scan_seq``'s; then one scan of
+    an ``hmmpress``ed copy of the stack through ``HMMPressedFile``,
+    whose rows equal the last timed run's.  Returns the launches."""
     ncmp = len(queries) * len(targets)
     t = time.time()
     list(hmmscan(targets, queries, device="cuda"))
@@ -1252,11 +1294,231 @@ def phase_hmmscan(smi, queries, targets):
         if not ref.reported:
             fail(f"hmmscan {name.decode()}: no reported model")
     oracle_s = time.time() - t
+    with tempfile.TemporaryDirectory() as td:
+        db = os.path.join(td, "smoke")
+        t = time.time()
+        npressed = hmmpress(queries, db)
+        press_s = time.time() - t
+        t = time.time()
+        with HMMPressedFile(db) as pressed:
+            from_db = list(hmmscan(targets, pressed, device="cuda"))
+        torch.cuda.synchronize()
+        pressed_s = time.time() - t
+    if npressed != len(queries):
+        fail(f"hmmpress wrote {npressed} models of {len(queries)}")
+    if [(th.query_name, th.Z, rows(th)) for th in from_db] != \
+            [(th.query_name, th.Z, rows(th)) for th in res]:
+        fail("hmmscan of the pressed database: rows differ from the scan "
+             "of the HMM list")
     say("hmmscan", card=smi, queries=len(targets), models=len(queries),
         comparisons=ncmp, warm_s=warm_s, wall_s=walls,
         cmp_per_s=[ncmp / w for w in walls], launches=launches,
         oracle_queries=[n.decode() for n in picks], oracle_s=oracle_s,
-        reported=sum(len(th.reported) for th in res))
+        reported=sum(len(th.reported) for th in res), press_s=press_s,
+        pressed_scan_s=pressed_s, pressed_rows_identical=True)
+    return launches
+
+
+#: shards of the sharded phases, all on the one card
+SHARDS = 4
+NHMMER_SHARDS = 2
+#: the kernels each sharded path must have launched (Viterbi runs only
+#: where the routing sends pairs to it, which in a shard of a quarter of
+#: the targets it may not)
+SHARDED_KERNELS = ("msv", "fwd")
+
+
+def need_launches(path, launches, kernels):
+    for k in kernels:
+        if launches[k] <= 0:
+            fail(f"{path}: kernel {k} was not launched ({launches})")
+
+
+def phase_cascade(smi, models, targets):
+    """``ShardedCascade`` on a 2 x 2 mesh of the one card: the 16 distinct
+    smoke models at one ``Mp`` against the 4,002 targets, held against
+    one unsharded MSV and one unsharded Forward launch of the same
+    inputs (dx and ovf identical, ``n_pass`` equal, Forward within
+    :data:`FWD_TOL`).  Returns the sharded run's launches."""
+    aa = targets.alphabet
+    bg = Background(aa)
+    Mp = B.round_up(max(h.M for h in models), 32)
+    pb = B.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                    multihit=True)
+                         for h in models], Mp=Mp)
+    lengths = np.array([len(s) for s in targets], dtype=np.int64)
+    codes = np.full((len(targets), int(lengths.max())), aa.nonresidue_code,
+                    dtype=np.uint8)
+    for i, s in enumerate(targets):
+        codes[i, : len(s)] = s.sequence
+    casc = mesh.ShardedCascade(mesh.make_mesh(2, 2, devices=["cuda:0"] * 4))
+    reset_launches()
+    t = time.time()
+    usc, ovf, n_pass = casc.msv(pb, codes, lengths)
+    msv_s = time.time() - t
+    t = time.time()
+    fwd = casc.forward(pb, codes, lengths)
+    fwd_s = time.time() - t
+    launches = read_launches()
+    need_launches("cascade", launches, ("msv", "fwd"))
+    # the same work in one launch each
+    pbc = B.ProfileBatch(pb.profiles, Mp=Mp).to("cuda")
+    seq = B.SeqDevice(codes, lengths, device="cuda")
+    t = time.time()
+    dx, o, _ = msv_cuda.msv(pbc, seq)
+    want_usc = B.msv_nats(dx.cpu().numpy(), o.cpu().numpy(), seq.tjbu_host,
+                          pb.scale_b)
+    one_msv_s = time.time() - t
+    if not np.array_equal(ovf, o.cpu().numpy() > 0):
+        fail("cascade: ovf differs from the unsharded launch")
+    if not np.array_equal(usc, want_usc):
+        fail("cascade: MSV scores differ from the unsharded launch")
+    want_pass = int(((dx > 0) & (o == 0)).sum())
+    if n_pass != want_pass:
+        fail(f"cascade: n_pass {n_pass} != unsharded {want_pass}")
+    rows_ = np.arange(seq.B, dtype=np.int64)
+    need = np.ones((pb.P, seq.B), dtype=bool)
+    t = time.time()
+    want_fwd = fwd_cuda.forward(
+        pbc, seq, torch.as_tensor(rows_, device="cuda"),
+        torch.as_tensor(need, device="cuda"),
+        torch.as_tensor(_pairs.host_pairs(rows_, need),
+                        device="cuda")).cpu().numpy()
+    one_fwd_s = time.time() - t
+    err = float(np.abs(fwd - want_fwd).max())
+    if not err <= FWD_TOL:
+        fail(f"cascade: Forward off the unsharded launch by {err} nats")
+    say("cascade", card=smi, mesh=casc.mesh.shape, profiles=pb.P, Mp=Mp,
+        targets=len(targets), Lmax=int(lengths.max()), n_pass=n_pass,
+        overflowed=int(ovf.sum()), msv_s=msv_s, fwd_s=fwd_s,
+        unsharded_msv_s=one_msv_s, unsharded_fwd_s=one_fwd_s,
+        fwd_max_abs_diff=err, fwd_identical=err == 0.0, bar=FWD_TOL,
+        launches=launches)
+    return launches
+
+
+def phase_sharded(smi, queries, targets, single, forced_rows_on,
+                  nh_models, genome, nh_single):
+    """``sharded_search`` of the smoke workload in :data:`SHARDS` shards
+    on the one card: its first run's rows and Z identical to the
+    single-shot search (phase 3), then three timed runs (the counts read
+    over the last); one run with the cascade forced and the rows stage
+    on, held against the single-shot one of ``phase_rows_correctness``
+    (rows-on bars); then ``sharded_nhmmer`` of the nhmmer models in
+    :data:`NHMMER_SHARDS` shards against the single-shot nhmmer's rows.
+    Returns the launches of the timed run, the rows run and nhmmer."""
+    devices = ["cuda:0"] * SHARDS
+    ncmp = len(queries) * len(targets)
+    t = time.time()
+    first = mesh.sharded_search(queries, targets, devices=devices)
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    for a, b in zip(first, single):
+        if rows(a) != rows(b) or a.Z != b.Z:
+            fail(f"sharded {a.query_name.decode()}: rows or Z differ from "
+                 f"the single-shot search")
+    walls, stats = [], []
+    for run in range(3):
+        if run == 2:
+            reset_launches()
+        t = time.time()
+        res = mesh.sharded_search(queries, targets, devices=devices)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t)
+        stats.append(mesh.sharded_search.last_stats)
+    launches = read_launches()
+    need_launches("sharded", launches, SHARDED_KERNELS)
+    if [rows(th) for th in res] != [rows(th) for th in single]:
+        fail("sharded: a timed run's rows differ from the single-shot "
+             "search")
+    reset_launches()
+    t = time.time()
+    with forced_cascade():
+        on = mesh.sharded_search(queries, targets, devices=devices,
+                                 device_rows=True)
+    torch.cuda.synchronize()
+    rows_s = time.time() - t
+    launches_rows = read_launches()
+    need_launches("sharded rows", launches_rows, KERNELS)
+    worst = rows_close(on, forced_rows_on,
+                       "sharded rows-on against single-shot rows-on")
+    say("sharded", card=smi, shards=SHARDS, queries=len(queries),
+        targets=len(targets), comparisons=ncmp, first_s=first_s,
+        wall_s=walls, cmp_per_s=[ncmp / w for w in walls],
+        shard_walls=[s["shard_walls"] for s in stats],
+        overlap_factor=[s["overlap_factor"] for s in stats],
+        launches=launches, rows_on_s=rows_s, rows_on_launches=launches_rows,
+        rows_on_max_score_bias_diff=worst)
+    reset_launches()
+    t = time.time()
+    nh = [mesh.sharded_nhmmer(h, genome, n_shards=NHMMER_SHARDS,
+                              devices=["cuda:0"] * NHMMER_SHARDS)
+          for h in nh_models]
+    torch.cuda.synchronize()
+    nh_s = time.time() - t
+    launches_nh = read_launches()
+    need_launches("sharded_nhmmer", launches_nh, ("msv", "vit", "fwd"))
+    for a, b in zip(nh, nh_single):
+        if nh_rows(a) != nh_rows(b):
+            fail(f"sharded_nhmmer {a.query_name.decode()}: rows differ from "
+                 f"the single-shot nhmmer")
+    say("sharded_nhmmer", card=smi, shards=NHMMER_SHARDS,
+        models=[h.M for h in nh_models], wall_s=nh_s,
+        reported=[len(th.reported) for th in nh], launches=launches_nh)
+    return launches, launches_rows, launches_nh
+
+
+def phase_multihost(smi, single):
+    """Two ranks (``torch.distributed``, gloo on 127.0.0.1), each a fresh
+    interpreter whose engine runs on the one card, over the smoke
+    workload: each rank's table identical to the other's and to the
+    single-process search (phase 3).  Returns the launches the ranks
+    made together (each rank counts its own)."""
+    want = _worker.table(single)
+    with tempfile.TemporaryDirectory() as td:
+        t = time.time()
+        ranks, retries = _worker.spawn(["cuda:0", "cuda:0"], "smoke", td,
+                                       timeout=600)
+        wall = time.time() - t
+    for r in ranks:
+        if {"rows": r["rows"], "acct": r["acct"]} != want:
+            fail(f"multihost: rank {r['rank']}'s table differs from the "
+                 f"single-process search")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+    need_launches("multihost", launches, SHARDED_KERNELS)
+    say("multihost", card=smi, ranks=len(ranks), wall_s=wall,
+        port_retries=retries,
+        rank_wall_s=[r["wall_s"] for r in ranks],
+        rank_run_s=[r["run_s"] for r in ranks],
+        search_wall_s=[r["search_wall"] for r in ranks],
+        exchange_wall_s=[r["exchange_wall"] for r in ranks],
+        bytes_sent=[r["bytes_sent"] for r in ranks],
+        bytes_received=[r["bytes_received"] for r in ranks],
+        rank_launches=[r["launches"] for r in ranks],
+        reported=sum(len(x) for x in want["rows"]), tables_identical=True)
+    return launches
+
+
+def phase_entry(smi):
+    """``graft_entry.entry()``'s Forward step on the card against the
+    plain Forward on the same tensors (within :data:`FWD_TOL`), then
+    ``dryrun_multichip(4)`` over the one card.  Returns the launches of
+    both (the dryrun's 2-process run counts in its ranks)."""
+    reset_launches()
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = fwd_cuda.fwd_plain(*args[:7])
+    err = float((got - want).abs().max())
+    if not err <= FWD_TOL:
+        fail(f"entry: Forward step off the plain version by {err} nats")
+    t = time.time()
+    dry = graft_entry.dryrun_multichip(4)
+    dry_s = time.time() - t
+    launches = read_launches()
+    need_launches("entry", launches, ("msv", "fwd"))
+    say("entry", card=smi, shape=list(got.shape), max_abs_err=err,
+        bar=FWD_TOL, dryrun_s=dry_s, dryrun=dry, launches=launches)
     return launches
 
 
@@ -1289,7 +1551,7 @@ def main():
     # kernel (off by default, it runs only there)
     launches = dict(launches_off, rows=launches_on["rows"])
     phase_correctness(queries, models, targets, planted, res)
-    phase_rows_correctness(queries, targets)
+    forced_rows_on = phase_rows_correctness(queries, targets)
     by_path = {"rows_off": launches_off, "rows_on": launches_on,
                "calibrate": phase_calibrate(smi, parity)}
     seqs = phmmer_queries(targets, planted, models)
@@ -1297,8 +1559,15 @@ def main():
                                      parity)
     by_path["jackhmmer"] = phase_jackhmmer(smi, seqs, targets)
     by_path["wide"] = phase_wide(smi, targets, parity)
-    by_path["nhmmer"] = phase_nhmmer(smi, parity)
+    by_path["nhmmer"], nh_models, genome, nh_res = phase_nhmmer(smi, parity)
     by_path["hmmscan"] = phase_hmmscan(smi, queries, targets)
+    by_path["cascade"] = phase_cascade(smi, models, targets)
+    (by_path["sharded"], by_path["sharded_rows"],
+     by_path["sharded_nhmmer"]) = phase_sharded(
+        smi, queries, targets, res, forced_rows_on, nh_models, genome,
+        nh_res)
+    by_path["multihost"] = phase_multihost(smi, res)
+    by_path["entry"] = phase_entry(smi)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "pyhmmer_tpu"))
     if foreign:

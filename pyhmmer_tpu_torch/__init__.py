@@ -8,10 +8,15 @@ PyTorch versions on the CPU, and report hits through the same exact host
 postprocessing as ``pyhmmer_tpu``; ``nhmmer`` gates its long-target
 subwindows on the same kernels; the model ``Builder`` calibrates
 E-values on the MSV and Viterbi kernels.  Models of any width run on
-the card (past 4,096 slots on the kernels' wide route).  The package keeps
-its own copy of the host layers it needs (``easel``, ``plan7``,
-``ops.{native,reference,quantize}``, ``csrc/hmmdp.cpp``) and imports
-neither JAX nor any module of ``pyhmmer_tpu``.
+the card (past 4,096 slots on the kernels' wide route).  ``hmmalign`` and
+``hmmpress`` run on the host.  ``parallel.mesh`` shards a search over
+devices (``sharded_search``, ``sharded_nhmmer``, ``ShardedCascade``),
+``parallel.multihost`` over processes (``torch.distributed``, gloo), and
+``graft_entry`` holds the entry points (``entry``,
+``dryrun_multichip``).  The package keeps its own copy of the host
+layers it needs (``easel``, ``plan7``, ``ops.{native,reference,
+quantize}``, ``daemon``, ``csrc/hmmdp.cpp``) and imports neither JAX nor
+any module of ``pyhmmer_tpu``.
 
 Builds, each at first use and never at import, under ``build/`` at the
 root of the checkout: the CUDA kernels (``csrc/*.cu``, nvcc for
@@ -27,7 +32,8 @@ tests skip); on a card, ``python3 chip_smoke.py`` and
 __version__ = "0.1.0"
 
 from .engine import SearchEngine
-from .hmmer import hmmscan, hmmsearch, jackhmmer, nhmmer, phmmer
+from .hmmer import (hmmalign, hmmpress, hmmscan, hmmsearch, jackhmmer,
+                    nhmmer, phmmer)
 
 __all__ = ["hmmsearch", "hmmscan", "phmmer", "jackhmmer", "nhmmer",
-           "SearchEngine", "__version__"]
+           "hmmalign", "hmmpress", "SearchEngine", "__version__"]

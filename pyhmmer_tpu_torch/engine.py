@@ -80,6 +80,13 @@ ROWS_MAX_MP = 768
 LONG_BUCKET = 2048
 
 
+def pool_size() -> int:
+    """Workers of a native postprocessing pool: ``PYHMMER_TPU_THREADS``,
+    or the core count (at least 2), as in the JAX engine."""
+    return (int(os.environ.get("PYHMMER_TPU_THREADS", "0"))
+            or max(2, os.cpu_count() or 2))
+
+
 class _Buckets:
     """Length-bucketed packing of a target block on ``device``: one bucket
     per ladder level, lanes sorted by length, at most ``2**24 / Lmax``
@@ -223,15 +230,24 @@ class SearchEngine:
     ``device`` selects where the cascade runs: a CUDA device runs the
     hand-written kernels, ``"cpu"`` their plain PyTorch versions.
     ``device_rows`` turns on the device rows stage (see the module
-    docstring); it needs the native library."""
+    docstring); it needs the native library.  ``shared_executor``: a
+    caller-owned ``ThreadPoolExecutor`` that runs the native
+    postprocessing jobs of every search, and that the engine never shuts
+    down (engines running side by side on one host, as
+    ``parallel.mesh.sharded_search``'s shards do, share one pool of the
+    core count; pools of their own would oversubscribe the cores).
+    Without one, each search runs a pool of ``PYHMMER_TPU_THREADS``
+    workers (default: the core count, at least 2) and shuts it down."""
 
     def __init__(self, alphabet: Alphabet,
                  background: Optional[Background] = None, device="cuda",
-                 device_rows: bool = False, **pipeline_options):
+                 device_rows: bool = False, shared_executor=None,
+                 **pipeline_options):
         self.alphabet = alphabet
         self.background = background or Background(alphabet)
         self.device = resolve_device(device)
         self.device_rows = bool(device_rows)
+        self.shared_executor = shared_executor
         self.options = pipeline_options
         self._model_cache: dict = {}
         self._streams: List[torch.cuda.Stream] = []
@@ -310,8 +326,13 @@ class SearchEngine:
             tmark[name] = time.time() - t0
         native_ok = _native.available()
         marg0 = _native.marginal_count()
-        nthreads = max(2, os.cpu_count() or 2)
-        executor = _cf.ThreadPoolExecutor(nthreads) if native_ok else None
+        own_executor = native_ok and self.shared_executor is None
+        if not native_ok:
+            executor = None
+        elif own_executor:
+            executor = _cf.ThreadPoolExecutor(pool_size())
+        else:
+            executor = self.shared_executor
         pending = []   # (job tuple, future | None, speculative)
 
         def run_domaindef(job, ext=None):
@@ -692,7 +713,7 @@ class SearchEngine:
             hit = out[1]
             if hit is not None:
                 st.tophits[pi].hits.append(hit)
-        if executor is not None:
+        if own_executor:
             executor.shutdown()
         mark("collect_done")
         tmark["npending"] = len(pending)

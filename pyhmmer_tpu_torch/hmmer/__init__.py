@@ -1,16 +1,19 @@
 """Application layer of the port: ``hmmsearch``, ``hmmscan``, ``phmmer``
-and ``jackhmmer`` through the PyTorch engine, and ``nhmmer`` through the
-long-targets pipeline (the port of ``pyhmmer_tpu/hmmer/__init__.py``'s
-functions of those names).  phmmer, jackhmmer and nhmmer build their
-query models with the port's
-:class:`~pyhmmer_tpu_torch.plan7.builder.Builder`, whose E-value
+and ``jackhmmer`` through the PyTorch engine, ``nhmmer`` through the
+long-targets pipeline, and the host-only ``hmmalign`` and ``hmmpress``
+(the port of ``pyhmmer_tpu/hmmer/__init__.py``'s functions of those
+names).  phmmer, jackhmmer and nhmmer build their query models with the
+port's :class:`~pyhmmer_tpu_torch.plan7.builder.Builder`, whose E-value
 calibration runs on the same device as the search; hmmscan runs the
-engine with the profile database as its queries and re-keys the hits by
-model; nhmmer's subwindow gates run on the device's kernels."""
+engine with the profile database (HMMs, profiles, or a pressed
+database's :class:`~pyhmmer_tpu_torch.plan7.optimized.HMMPressedFile`)
+as its queries and re-keys the hits by model; nhmmer's subwindow gates
+run on the device's kernels."""
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+import os
+from typing import Iterator, Optional, Union
 
 from .._device import resolve_device
 from ..easel.alphabet import Alphabet
@@ -21,13 +24,16 @@ from ..engine import SearchEngine
 from ..plan7.background import Background
 from ..plan7.builder import Builder
 from ..plan7.hmm import HMM
+from ..plan7.hmmfile import write_hmm_binary
 from ..plan7.longtargets import LongTargetsPipeline
 from ..plan7.optimized import OptimizedProfile
 from ..plan7.pipeline import Pipeline
 from ..plan7.profile import Profile
 from ..plan7.results import Hit, TopHits
+from ..plan7.tracealign import TraceAligner
 
-__all__ = ["hmmsearch", "hmmscan", "phmmer", "jackhmmer", "nhmmer"]
+__all__ = ["hmmsearch", "hmmscan", "phmmer", "jackhmmer", "hmmalign",
+           "hmmpress", "nhmmer"]
 
 #: jackhmmer sends each round's search to the engine from this many
 #: targets up; smaller target sets take the sequential pipeline
@@ -36,8 +42,8 @@ __all__ = ["hmmsearch", "hmmscan", "phmmer", "jackhmmer", "nhmmer"]
 JACKHMMER_ENGINE_MIN_TARGETS = 64
 
 
-# _target_block and _query_list: pyhmmer_tpu/hmmer/__init__.py:40-59,
-# without the HMMFile case (the port reads no HMM files)
+# _target_block and _query_list: pyhmmer_tpu/hmmer/__init__.py:40-59 (an
+# HMMFile is a list of queries like any other iterable)
 def _target_block(sequences, alphabet: Optional[Alphabet] = None
                   ) -> DigitalSequenceBlock:
     if isinstance(sequences, DigitalSequenceBlock):
@@ -125,7 +131,10 @@ def hmmscan(queries, profiles, *, device="cuda", callback=None,
     :class:`TopHits` per query sequence, in query order, with Z = the
     number of profiles (``pyhmmer_tpu.hmmer.hmmscan``).  ``profiles``
     holds :class:`HMM`, :class:`Profile` or :class:`OptimizedProfile`
-    objects (a profile carries its core model).  The scan is the
+    objects (a profile carries its core model), or is a pressed
+    database's :class:`~pyhmmer_tpu_torch.plan7.optimized.HMMPressedFile`
+    (written by :func:`hmmpress`), whose optimized profiles carry the
+    models of its ``.h3m`` member.  The scan is the
     transpose of a search: one :class:`SearchEngine` call on ``device``
     (or ``engine``, which keeps its configured models across calls) with
     the profiles as queries and the sequences as targets, each hit then
@@ -342,6 +351,54 @@ def jackhmmer(queries, sequences, *, max_iterations: int = 5,
                 callback(q, len(queries))
             yield out
     return gen()
+
+
+def hmmalign(hmm: HMM, sequences, *, trim: bool = False,
+             digitize: bool = False, all_consensus_cols: bool = True):
+    """Align sequences to an HMM (``pyhmmer_tpu.hmmer.hmmalign``): one
+    Viterbi trace a sequence on the host, then the multiple alignment of
+    the traces."""
+    seqs = list(sequences)
+    aligner = TraceAligner()
+    traces = aligner.compute_traces(hmm, seqs)
+    return aligner.align_traces(hmm, seqs, traces, trim=trim,
+                                digitize=digitize,
+                                all_consensus_cols=all_consensus_cols)
+
+
+def hmmpress(hmms, output: Union[str, os.PathLike]) -> int:
+    """Press HMMs into a database (``pyhmmer_tpu.hmmer.hmmpress``):
+    writes ``.h3m`` (binary models), ``.h3i`` (SSI index by name,
+    aliased by accession), and the ``.h3f``/``.h3p`` vectorized-profile
+    members in HMMER's byte layout (``p7_oprofile_Write``), so HMMER can
+    read them; returns the number of models.  Host-only."""
+    from ..easel.ssi import SSIWriter
+    from ..ops.quantize import quantize_msv
+    from ..plan7.pressed import write_h3f_record, write_h3p_record
+
+    base = os.fspath(output)
+    n = 0
+    with open(base + ".h3m", "wb") as fm, \
+         open(base + ".h3f", "wb") as ff, \
+         open(base + ".h3p", "wb") as fp, \
+         SSIWriter(base + ".h3i") as ssi:
+        fd = ssi.add_file(os.path.basename(base) + ".h3m")
+        for hmm in hmms:
+            moff = fm.tell()
+            foff = ff.tell()
+            poff = fp.tell()
+            write_hmm_binary(hmm, fm)
+            bg = Background(hmm.alphabet)
+            prof = Profile(hmm.M, hmm.alphabet).configure(hmm, bg, 400)
+            q = quantize_msv(prof)
+            write_h3f_record(ff, hmm, quant=q,
+                             offs=(moff, foff, poff))
+            write_h3p_record(fp, hmm, prof=prof)
+            ssi.add_key(hmm.name, fd, moff, foff, hmm.M)
+            if hmm.accession:
+                ssi.add_alias(hmm.accession, hmm.name)
+            n += 1
+    return n
 
 
 def nhmmer(queries, sequences, *, device="cuda", callback=None,

@@ -72,6 +72,16 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_count_lock = threading.Lock()
+
+
+def count_launch(namespace: dict) -> None:
+    """Add one to ``launches`` in a wrapper module's ``namespace``, under
+    a lock: the shard engines of ``parallel.mesh.sharded_search`` launch
+    from threads of their own, and ``launches += 1`` is no atomic
+    update."""
+    with _count_lock:
+        namespace["launches"] += 1
 
 
 def _nvcc() -> str:

@@ -48,7 +48,6 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
         return fwd_plain(codes, lens, lm, emis, trans, rows, need)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    global launches
     Kp, S = emis.shape[1], packed_stripes(trans)
     pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need, pairs)
     npairs = int(pair_p.shape[0])
@@ -63,14 +62,14 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
             P_(trans), P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp,
             Mk, P_(out), P_(scratch), nctas, _build.stream_ptr(codes))
         _build.check(err, "fwd_cta_launch")
-        launches += 1
+        _build.count_launch(globals())
         return out
     err = _build.lib().fwd_launch(
         P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),
         P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp, S, P_(out),
         _build.stream_ptr(codes))
     _build.check(err, "fwd_launch")
-    launches += 1
+    _build.count_launch(globals())
     return out
 
 

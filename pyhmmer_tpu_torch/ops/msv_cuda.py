@@ -61,7 +61,6 @@ def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
         return msv_plain(codes, lens, w16, scal, odds, tjb, p1)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    global launches
     B, Lmax = codes.shape
     P, Kp = w16.shape[:2]
     dx = torch.empty((P, B), dtype=torch.float32, device=codes.device)
@@ -84,7 +83,7 @@ def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
             P_(tjb), P_(p1), B, P, Kp, w16.shape[2], P_(dx), P_(ovf),
             P_(biaslog), _build.stream_ptr(codes))
         _build.check(err, "msv_launch")
-    launches += 1
+    _build.count_launch(globals())
     return dx, ovf, biaslog
 
 

@@ -18,6 +18,7 @@ import fcntl
 import os
 import subprocess
 import tempfile
+import threading
 import numpy as np
 from typing import Optional
 
@@ -30,6 +31,7 @@ _LOCK = os.path.join(_BUILD, ".lock")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_load_lock = threading.Lock()
 
 _D = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 _U8 = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
@@ -107,10 +109,19 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
+    """The library, built and loaded by the first caller; callers that
+    arrive meanwhile (the shard engines of ``parallel.mesh`` start in
+    threads of their own) wait for it."""
     global _lib, _tried
-    if _tried:
-        return _lib
-    _tried = True
+    if not _tried:
+        with _load_lock:
+            if not _tried:
+                _lib = _load()
+                _tried = True
+    return _lib
+
+
+def _load() -> Optional[ctypes.CDLL]:
     if os.environ.get("PYHMMER_TPU_NATIVE", "1") == "0":
         return None
     os.makedirs(_BUILD, exist_ok=True)
@@ -220,8 +231,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.hmmdp_forward_flogsum.restype = ctypes.c_double
     lib.hmmdp_phase_reset.argtypes = []
     lib.hmmdp_phase_reset.restype = None
-    _lib = lib
-    return _lib
+    return lib
 
 
 def ssv_seed(quant, dsq: np.ndarray, xBv: int, thresh: int,

@@ -109,7 +109,6 @@ def _scores(codes, lens, lm, emis, trans, pair_p, pair_row, route: str):
         return rows_plain(codes, lens, lm, emis, trans, pair_p, pair_row)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    global launches
     f32 = dict(dtype=torch.float32, device=codes.device)
     frows = torch.empty((G, NF, Lmax + 1), **f32)
     terms = torch.zeros((G, Lmax + 1, NT), **f32)
@@ -121,7 +120,7 @@ def _scores(codes, lens, lm, emis, trans, pair_p, pair_row, route: str):
         P_(pair_row), G, Kp, S, ROUTES[route], P_(frows), P_(fsc),
         P_(terms), P_(bsc), _build.stream_ptr(codes))
     _build.check(err, "rows_launch")
-    launches += 1
+    _build.count_launch(globals())
     return terms, fsc, bsc
 
 

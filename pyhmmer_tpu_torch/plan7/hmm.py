@@ -377,3 +377,10 @@ class HMM:
     def __repr__(self) -> str:
         return f"<HMM name={self.name!r} M={self.M} alphabet={self.alphabet.name}>"
 
+    def write(self, fh, binary: bool = False) -> None:
+        """Write in HMMER3 format (ASCII 3/f, or binary .h3m)."""
+        from .hmmfile import write_hmm_ascii, write_hmm_binary
+        if binary:
+            write_hmm_binary(self, fh)
+        else:
+            write_hmm_ascii(self, fh)

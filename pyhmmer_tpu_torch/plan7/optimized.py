@@ -1,29 +1,33 @@
-"""Optimized (quantized) profiles.
+"""Optimized (quantized) profiles and pressed profile databases.
 
-Mirrors ``pyhmmer.plan7.OptimizedProfile`` / ``OptimizedProfileBlock``
-(reference ``src/pyhmmer/plan7.pyx:4183-5123``).
-
-The port's copy of ``pyhmmer_tpu/plan7/optimized.py``, for hmmscan's
-``OptimizedProfile`` inputs: the quantized tables come from
+The port's copy of ``pyhmmer_tpu/plan7/optimized.py``
+(``pyhmmer.plan7.OptimizedProfile`` / ``HMMPressedFile`` /
+``OptimizedProfileBlock``): the quantized tables come from
 :mod:`pyhmmer_tpu_torch.ops.quantize`, and an optimized profile keeps its
-configured profile, whose core model the scan searches.  It leaves out
-``OptimizedProfile.write`` and ``HMMPressedFile``, which read and write
-pressed databases (``plan7/pressed.py``, not in the port).
+configured profile, whose core model hmmscan searches.  A pressed
+database's ``.h3m`` member carries the full model, so
+:class:`HMMPressedFile` reconstructs optimized profiles from it (or, for
+a database pressed by HMMER itself, from its ``.h3f``/``.h3p`` members,
+``plan7/pressed.py``); the ``.h3f``/``.h3p`` members are written in
+HMMER's byte layout.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
-
+import os
+import struct
 import numpy as np
+from typing import Iterator, List, Optional
 
 from ..easel.alphabet import Alphabet
-from ..ops import reference as refops
-from ..ops.quantize import MSVQuant, quantize_msv
-from .profile import Profile
 from .views import Offsets
+from .hmm import HMM
+from .background import Background
+from .profile import Profile
+from ..ops.quantize import quantize_msv, MSVQuant
+from ..ops import reference as refops
 
-__all__ = ["OptimizedProfile", "OptimizedProfileBlock"]
+__all__ = ["OptimizedProfile", "OptimizedProfileBlock", "HMMPressedFile"]
 
 
 class OptimizedProfile:
@@ -202,6 +206,16 @@ class OptimizedProfile:
     def consensus_structure(self):
         return getattr(self._profile, "consensus_structure", None)
 
+    def write(self, fh_filter, fh_profile) -> None:
+        """Write the filter and profile parts to two binary handles in
+        the REFERENCE byte layout (``p7_oprofile_Write``,
+        ``plan7.pyx:6480-6486``): the output is readable by HMMER's
+        ``p7_oprofile_ReadMSV``/``ReadRest`` and by
+        ``plan7.pressed``."""
+        from .pressed import write_h3f_record, write_h3p_record
+        write_h3f_record(fh_filter, self._profile, quant=self.quant)
+        write_h3p_record(fh_profile, self._profile, prof=self._profile)
+
     def reconfig_length(self, L: int) -> None:
         self._profile.reconfig_length(L)
 
@@ -279,3 +293,83 @@ class OptimizedProfileBlock:
 
     def remove(self, om: OptimizedProfile) -> None:
         self._profiles.remove(om)
+
+
+class HMMPressedFile:
+    """Iterator of OptimizedProfile from a pressed database
+    (``plan7.pyx:3842-4027``).  Models are read from the ``.h3m`` member
+    (which carries the complete parameterization), and only without one
+    rebuilt from the ``.h3f``/``.h3p`` members.  (The JAX package
+    rebuilds them from those members whenever the ``.h3f`` is in HMMER's
+    layout, which its own ``hmmpress`` writes too, and so scans other
+    models than the ones pressed.)"""
+
+    def __init__(self, path):
+        from .hmmfile import HMMFile
+        base = os.fspath(path)
+        if base.endswith((".h3m", ".h3f", ".h3p", ".h3i")):
+            base = base[:-4]
+        self._path = base
+        self._hmms: Optional[list] = None
+        self._hmm_iter = None
+        from .pressed import is_reference_pressed
+        if (not os.path.exists(base + ".h3m")
+                and os.path.exists(base + ".h3f")
+                and is_reference_pressed(base + ".h3f")):
+            # no .h3m member: reconstruct the models from the .h3f/.h3p
+            # members (plan7/pressed.py).  The .h3m holds the exact
+            # models and the .h3f/.h3p only the configured profile's
+            # f32 odds, from which some transitions and the insert
+            # emissions do not come back, so a database that has a .h3m
+            # (as hmmpress writes it, ours and HMMER's) is read from it
+            from .pressed import reconstruct_models
+            self._hmms = reconstruct_models(base + ".h3f", base + ".h3p")
+            self._hmm_iter = iter(self._hmms)
+            self._hmmfile = None
+        else:
+            for ext in (".h3m", ".h3i"):
+                if not os.path.exists(base + ext):
+                    raise FileNotFoundError(base + ext)
+            self._hmmfile = HMMFile(base + ".h3m")
+        self._bg: Optional[Background] = None
+
+    @property
+    def name(self):
+        return self._path
+
+    def read(self) -> Optional[OptimizedProfile]:
+        if self._hmm_iter is not None:
+            hmm = next(self._hmm_iter, None)
+        else:
+            hmm = self._hmmfile.read()
+        if hmm is None:
+            return None
+        if self._bg is None or self._bg.alphabet != hmm.alphabet:
+            self._bg = Background(hmm.alphabet)
+        prof = Profile(hmm.M, hmm.alphabet).configure(hmm, self._bg, 400)
+        return OptimizedProfile(prof)
+
+    def rewind(self):
+        if self._hmm_iter is not None:
+            self._hmm_iter = iter(self._hmms)
+        else:
+            self._hmmfile.rewind()
+
+    def __iter__(self) -> Iterator[OptimizedProfile]:
+        return self
+
+    def __next__(self) -> OptimizedProfile:
+        om = self.read()
+        if om is None:
+            raise StopIteration
+        return om
+
+    def close(self):
+        if self._hmmfile is not None:
+            self._hmmfile.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

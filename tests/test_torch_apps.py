@@ -118,3 +118,62 @@ def test_hmmscan_reuses_one_engine(scan_case):
     assert len(eng._model_cache) == cached > 0
     once = list(pyhmmer_tpu_torch.hmmscan(seqs, models, device="cpu"))
     assert scan_rows(first + second) == scan_rows(once)
+
+
+def test_hmmpress_files_equal_jax(scan_case, tmp_path):
+    """``hmmpress`` of the 16 smoke models: the four members (``.h3m``,
+    ``.h3i``, ``.h3f``, ``.h3p``) byte for byte the JAX package's."""
+    models, _, jmodels, _ = scan_case
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    assert pyhmmer_tpu_torch.hmmpress(models, tmp_path / "port" / "db") \
+        == jax_hmmer.hmmpress(jmodels, tmp_path / "jax" / "db") == 16
+    for ext in (".h3m", ".h3i", ".h3f", ".h3p"):
+        got = (tmp_path / "port" / ("db" + ext)).read_bytes()
+        assert got == (tmp_path / "jax" / ("db" + ext)).read_bytes(), ext
+        assert got
+
+
+def test_hmmscan_of_a_pressed_database(scan_case, tmp_path):
+    """A scan of the pressed database (``HMMPressedFile``, read from its
+    ``.h3m``) reports the rows of the scan of the HMM list.  Without the
+    ``.h3m`` the models are rebuilt from the ``.h3f``/``.h3p`` members,
+    as the JAX package always does for this layout: then the scan of 5
+    models reports what the JAX package's scan of its pressed copy
+    reports."""
+    from pyhmmer_tpu.plan7 import HMMPressedFile as JHMMPressedFile
+    from pyhmmer_tpu_torch.plan7 import HMMFile, HMMPressedFile
+    models, seqs, jmodels, jseqs = scan_case
+    db = tmp_path / "db"
+    pyhmmer_tpu_torch.hmmpress(models, db)
+    with HMMFile(str(db) + ".h3m") as fh:
+        back = list(fh)
+    assert [(h.name, h.M) for h in back] == [(h.name, h.M) for h in models]
+    want = list(pyhmmer_tpu_torch.hmmscan(seqs, models, device="cpu"))
+    with HMMPressedFile(db) as pressed:
+        got = list(pyhmmer_tpu_torch.hmmscan(seqs, pressed, device="cpu"))
+    assert scan_rows(got) == scan_rows(want)
+    # the rebuilt route on a database of 5 models, 10 queries
+    small = tmp_path / "small"
+    pyhmmer_tpu_torch.hmmpress(models[:5], small)
+    with JHMMPressedFile(small) as pressed:
+        jgot = list(jax_hmmer.hmmscan(jseqs[:10], pressed))
+    (tmp_path / "small.h3m").unlink()
+    with HMMPressedFile(small) as pressed:
+        rebuilt = list(pyhmmer_tpu_torch.hmmscan(seqs[:10], pressed,
+                                                 device="cpu"))
+    assert scan_rows(rebuilt) == scan_rows(jgot)
+
+
+def test_hmmalign_matches_jax(scan_case):
+    """``hmmalign`` of a model's planted targets, text and digital."""
+    models, seqs, jmodels, jseqs = scan_case
+    got = pyhmmer_tpu_torch.hmmalign(models[3], list(seqs)[:6])
+    want = jax_hmmer.hmmalign(jmodels[3], list(jseqs)[:6])
+    assert got.alignment == want.alignment and got.names == want.names
+    got = pyhmmer_tpu_torch.hmmalign(models[3], list(seqs)[:6], trim=True,
+                                     digitize=True)
+    want = jax_hmmer.hmmalign(jmodels[3], list(jseqs)[:6], trim=True,
+                              digitize=True)
+    np.testing.assert_array_equal(got.codes, want.codes)
+    assert len(got.names) == 6

@@ -7,8 +7,11 @@ package's bars; the f32 summation order being the only difference);
 ``Builder.calibrate`` on the card against the CPU (MSV mu, tau and
 lambda equal, Viterbi mu within 1e-3 bits), phmmer on the card
 against the CPU (identical rows), the wide route (models over 4,096
-slots) against the plain versions, and nhmmer with its gates on the card
-against the CPU's host path (identical rows).
+slots) against the plain versions, nhmmer with its gates on the card
+against the CPU's host path (identical rows), and the distribution
+layer on one card: ``sharded_search`` in 4 shards against the
+single-shot search (identical rows), ``ShardedCascade`` on a 2 x 2 mesh
+against unsharded launches.
 Marked ``gpu``: they skip where there is no CUDA device.  On the card,
 where JAX is not installed, run them without the repository's
 conftest::
@@ -603,3 +606,59 @@ def test_nhmmer_on_card_matches_cpu(cuda, monkeypatch):
     on_cpu = list(pt.nhmmer(models, genome, device="cpu"))
     assert [rows(th) for th in on_card] == [rows(th) for th in on_cpu]
     assert all(th.reported for th in on_card)
+
+
+def test_sharded_search_on_card_matches_single_shot(cuda):
+    """``sharded_search`` in 4 shards on one card (threads enqueueing on
+    its default stream) against the single-shot ``hmmsearch`` on the
+    card: the same rows and Z, every kernel of the path launched."""
+    import pyhmmer_tpu_torch as pt
+    from pyhmmer_tpu_torch.parallel import mesh
+
+    def rows(th):
+        return [(h.name, round(h.score, 4), float(f"{h.evalue:.4g}"),
+                 h.included, len(h.domains)) for h in th.reported]
+    models = syn.smoke_models()[:6]
+    targets, _ = syn.make_targets(models, 400, seed=61)
+    single = list(pt.hmmsearch(models, targets, device=cuda))
+    before = (msv_cuda.launches, fwd_cuda.launches)
+    got = mesh.sharded_search(models, targets, n_shards=4,
+                              devices=[cuda] * 4)
+    after = (msv_cuda.launches, fwd_cuda.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert mesh.sharded_search.last_stats["n_shards"] == 4
+    assert [rows(th) for th in got] == [rows(th) for th in single]
+    assert [th.Z for th in got] == [th.Z for th in single]
+
+
+def test_sharded_cascade_on_card_matches_unsharded(cuda):
+    """``ShardedCascade`` on a 2 x 2 mesh over one card against one
+    unsharded MSV and Forward launch: dx and ovf identical, n_pass
+    equal, Forward within the kernel's bar."""
+    from pyhmmer_tpu_torch.ops import _pairs
+    from pyhmmer_tpu_torch.parallel import mesh
+    models = syn.sample_models((40, 90, 150), seed=62)
+    aa = models[0].alphabet
+    bg = Background(aa)
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                     multihit=True)
+                          for h in models], Mp=160)
+    codes, lengths = syn.make_lanes(models, 61, 300, seed=63)
+    casc = mesh.ShardedCascade(mesh.make_mesh(2, 2, devices=[cuda] * 4))
+    usc, ovf, n_pass = casc.msv(pb, codes, lengths)
+    fwd = casc.forward(pb, codes, lengths)
+    pbc = pb.to(cuda)
+    dev = TB.SeqDevice(codes, lengths, device=cuda)
+    dx, o, _ = msv_cuda.msv(pbc, dev)
+    want = TB.msv_nats(dx.cpu().numpy(), o.cpu().numpy(), dev.tjbu_host,
+                       pb.scale_b)
+    np.testing.assert_array_equal(ovf, o.cpu().numpy() > 0)
+    np.testing.assert_array_equal(usc, want)
+    assert n_pass == int(((dx > 0) & (o == 0)).sum())
+    rows = np.arange(dev.B, dtype=np.int64)
+    need = np.ones((pb.P, dev.B), dtype=bool)
+    f = fwd_cuda.forward(pbc, dev, torch.as_tensor(rows, device=cuda),
+                         torch.as_tensor(need, device=cuda),
+                         torch.as_tensor(_pairs.host_pairs(rows, need),
+                                         device=cuda)).cpu().numpy()
+    assert np.abs(fwd - f).max() <= FWD_TOL
