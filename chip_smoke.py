@@ -230,13 +230,25 @@ FORCED = {"SPECULATE_P1B": -1.0, "HOST_MIN_PAIRS": 0,
           "HOST_PAIRS_PER_ROW": 0.0}
 
 
+#: the kernels with a wide route (models over 4,096 slots), whose
+#: wrappers count its launches apart (``launches_wide``)
+WIDE_KERNELS = ("msv", "fwd", "vit")
+
+
 def reset_launches():
-    for mod, _, _ in KERNELS.values():
+    for name, (mod, _, _) in KERNELS.items():
         mod.launches = 0
+        if name in WIDE_KERNELS:
+            mod.launches_wide = 0
 
 
 def read_launches():
-    return {k: mod.launches for k, (mod, _, _) in KERNELS.items()}
+    """Each kernel's launches, and as ``<kernel>_wide`` those of them on
+    the wide route."""
+    out = {k: mod.launches for k, (mod, _, _) in KERNELS.items()}
+    out.update({f"{k}_wide": KERNELS[k][0].launches_wide
+                for k in WIDE_KERNELS})
+    return out
 
 
 def say(phase, **kw):
@@ -350,6 +362,16 @@ def phase_environment(smi):
                          for k, v in ptxas.items()
                          if k.startswith("vit_kernel<")},
         note="registers, spill store and load bytes")
+    # the wide route's Forward and Viterbi kernels: fwd_cta_kernel<NT,
+    # SPT>, NT threads, SPT slots a thread (0: the row in memory); none
+    # may spill (csrc/common.cuh:PYHMMER_CTA_REGS)
+    cta = {k: (v["regs"], v.get("spill_st", 0), v.get("spill_ld", 0))
+           for k, v in ptxas.items()
+           if k.startswith(("fwd_cta_kernel<", "vit_cta_kernel<"))}
+    say("cta_spills", **cta, note="registers, spill store and load bytes")
+    if len(cta) < 2 or any(st or ld for _, st, ld in cta.values()):
+        fail(f"wide-route Forward/Viterbi instances spill or are missing: "
+             f"{cta}")
     say("sass", **sass_summary(_build.LIB, "msv_kernel"))
 
 
@@ -1070,8 +1092,11 @@ def phase_wide(smi, targets, parity):
     warm and three timed runs; its launches are counted over one run
     with the cascade forced (every bias survivor on the device Forward
     and Viterbi); its rows against the sequential oracle on every
-    ``WIDE_ORACLE_STRIDE``-th target and itself.  Returns the
-    launches."""
+    ``WIDE_ORACLE_STRIDE``-th target and itself.  Returns the launches,
+    and those of the 9,000-residue query's build and calibration.  The
+    three widths take the three tiers of the wide Forward and Viterbi
+    kernels: the row in registers (Mk 4,608), in shared memory (9,216),
+    in a global scratch row (35,328)."""
     aa = targets.alphabet
     bg = Background(aa)
     by_len = {len(s): s for s in targets}
@@ -1080,9 +1105,14 @@ def phase_wide(smi, targets, parity):
     t = time.time()
     h35, _, _ = builder.copy().build(q35k, bg)
     build35_s = time.time() - t
+    reset_launches()
     t = time.time()
     h9, _, _ = builder.copy().build(q9k, bg)
     build9_s = time.time() - t
+    build_launches = read_launches()
+    if build_launches["vit_wide"] != 1 or build_launches["msv_wide"] != 1:
+        fail(f"wide: the 9,000-residue query's calibration launched "
+             f"{build_launches}")
     hs = syn.sample_models((WIDE_SAMPLED_M,), seed=WIDE_SAMPLED_M)[0]
     _, codes, lengths, dev512 = next(
         b for b in E._Buckets(targets, "cuda").buckets if b[3].Lmax == 512)
@@ -1093,7 +1123,9 @@ def phase_wide(smi, targets, parity):
         pb = wide_batch(h)
         if pb.S:
             fail(f"wide: M {h.M} did not take the wide route")
-        label = f"wide route, M {h.M}: "
+        nt, tier = B.cta_shape(pb.Mk)
+        label = f"wide route, M {h.M} (Forward/Viterbi {nt} threads, " \
+                f"row in {tier}): "
         parity["msv"].append(msv_parity(pb, dev, 5, 1, label,
                                         "_msv_pallas2"))
         cols = torch.arange(0, dev.B, 8 if dev.B > 64 else 1,
@@ -1152,12 +1184,13 @@ def phase_wide(smi, targets, parity):
         Mk=B.kernel_width(B.round_up(h9.M, 32)),
         targets=ncmp, warm_s=warm_s, wall_s=walls,
         cmp_per_s=[ncmp / w for w in walls], forced_s=forced_s,
-        launches=launches, reported=len(res[0].reported),
+        launches=launches, build_launches=build_launches,
+        reported=len(res[0].reported),
         oracle_targets=len(subset), oracle_reported=len(ref.reported),
         oracle_score_diff_bits=score_diff, oracle_s=oracle_s,
         build_9k_s=build9_s, stage_marks=marks, build_35k_s=build35_s,
         M_35k=h35.M)
-    return launches
+    return launches, build_launches
 
 
 def nh_rows(th):
@@ -1227,7 +1260,10 @@ def phase_nhmmer(smi, parity):
             key=lambda i: float(calls[0][i][0].M.sum())
             * float(calls[0][i][1].lengths.sum()))
     pb, dev = calls[0][k]
-    label = f"nhmmer's largest gate launch ({k + 1} of {len(calls[0])}): "
+    route = ("%d threads, row in %s" % B.cta_shape(pb.Mk) if not pb.S
+             else "narrow route")
+    label = (f"nhmmer's largest gate launch ({k + 1} of {len(calls[0])}; "
+             f"Forward/Viterbi {route}): ")
     parity["msv"].append(msv_parity(pb, dev, 3, 0, label,
                                     "_msv_pallas (msv_scores_pallas)"))
     # the JAX package's gates: _vit_pallas, and _fwd_pallas2 up to Mp
@@ -1558,7 +1594,8 @@ def main():
     by_path["phmmer"] = phase_phmmer(smi, seqs, targets, planted, models,
                                      parity)
     by_path["jackhmmer"] = phase_jackhmmer(smi, seqs, targets)
-    by_path["wide"] = phase_wide(smi, targets, parity)
+    by_path["wide"], by_path["wide_build"] = phase_wide(smi, targets,
+                                                        parity)
     by_path["nhmmer"], nh_models, genome, nh_res = phase_nhmmer(smi, parity)
     by_path["hmmscan"] = phase_hmmscan(smi, queries, targets)
     by_path["cascade"] = phase_cascade(smi, models, targets)
@@ -1581,6 +1618,12 @@ def main():
                        "replaces": replaces, "launches": launches[name],
                        "launches_by_path": {path: n[name]
                                             for path, n in by_path.items()},
+                       # of those, the wide route's (models over 4,096
+                       # slots; not counted apart by the 2 gloo ranks)
+                       "wide_launches_by_path": {
+                           path: n.get(f"{name}_wide")
+                           for path, n in by_path.items()}
+                       if name in WIDE_KERNELS else None,
                        "max_abs_err": max(r["max_abs_err"]
                                           for r in parity[name]),
                        "ms": main_case["ms"],

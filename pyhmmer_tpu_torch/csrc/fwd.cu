@@ -342,160 +342,129 @@ fwd_wide_kernel(const uint8_t* __restrict__ codes, int Lmax,
     out[pair_out[w]] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
 }
 
-// The wide route (models over 4,096 slots, common.cuh): one CTA a pair,
-// each thread a contiguous run of SPT slots.  A thread runs M and I over
-// its slots and the D chain with 0 entering, giving its map x -> x A + B
-// (A the product of its D->D odds) and its share of E, C + x W (W the sum
-// of the D->D products before each slot); the warps scan the maps with
-// shuffles and sum the E shares, and lane 31 writes its warp's composed
-// map (lane 30 its inclusive prefix) to shared memory: one barrier a row,
-// double-buffered by row parity.  Every thread then composes the warps'
-// maps itself, giving E, the row's scale and the D entering itself and
-// the thread below it, and updates N, B, J, C from them.  The scratch row
-// holds each slot's unscaled M, I and local D: the next row forms the
-// true, scaled values as it reads them ((D + X pre) / max of the row), so
-// the row is written once; the thread below's last slot is read after the
-// barrier from the scratch row, which is not written again until two rows
-// later.  The float operations of a cell are the plain version's, in
-// order; the D chain is summed in another order (per thread, then by the
-// scan), so the score differs from it by f32 rounding only.
-__global__ void __launch_bounds__(CTA_THREADS)
-fwd_cta_kernel(const uint8_t* __restrict__ codes, int Lmax,
-               const int* __restrict__ lens, const float* __restrict__ lm,
-               const float* __restrict__ emis,   // [P, Kp, 2, Mk] odds
-               const float* __restrict__ trans,  // [P, 8, Mk] odds
-               const int* __restrict__ pair_p,
-               const int* __restrict__ pair_row,
-               const int* __restrict__ pair_out, int npairs, int Kp, int Mk,
-               float* __restrict__ scratch, float* __restrict__ out) {
-  // per warp and row parity: its map (A, B) and E share (C, W); lane 30's
-  // inclusive map
-  __shared__ float4 sW[2][CTA_WARPS];
-  __shared__ float2 s30[2][CTA_WARPS];
+// The wide route (models over 4,096 slots; the design in common.cuh, which
+// vit_cta_kernel shares): its first version was bound by the L2 bytes of
+// the tables it reads every row, 40 a slot, and of its scratch row, so it
+// reads the tables thread-major, one float2 and two float4 a slot
+// contiguous over the CTA, and keeps the row's cells out of device memory;
+// now each row's instructions and latency bound it.  One CTA of NT threads
+// a pair, thread t the run of SPT slots t*SPT .. t*SPT+SPT-1, its M, I and
+// D in registers (SPT > 0, the ladder PYHMMER_CTA_REGS: up to 5,632 slots)
+// or in a row of shared (up to CTA_SMEM_SLOTS) or global memory (SPT = 0,
+// the run length a.spt).  A thread runs M and I over its slots and the D
+// chain with 0 entering, giving its map x -> x A + B (A the product of its
+// D->D odds) and its share of E, C + x W (W the sum of the D->D products
+// before each slot); cta_scan composes them, giving E, the row's scale and
+// the D entering each thread.  The cells hold each slot's unscaled M, I
+// and local D: the next row forms the true, scaled values as it reads them
+// ((D + X pre) / max of the row).  The float operations of a cell are the
+// plain version's, in order; the D chain is summed in another order (per
+// thread, then by the scan), so the score differs from it by f32 rounding
+// only.
+template <int NT, int SPT>
+__global__ void __launch_bounds__(NT, 1)
+fwd_cta_kernel(const CtaArgs a, float* __restrict__ scratch) {
+  // per row parity: each warp's map and E share, lane 30's inclusive map,
+  // lane 31's last cells; the thread below's D->D product
+  __shared__ float4 sW[2][NT / 32];
+  __shared__ float2 s30[2][NT / 32];
+  __shared__ float4 sLast[2][NT / 32];
+  __shared__ float sPre[NT / 32];
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
-  const int spt = Mk / CTA_THREADS;
-  const int s0 = t * spt;
-  float* buf = scratch + (size_t)blockIdx.x * 6 * Mk;
-#define CTA_AT(q, j) ((size_t)((q) * spt + (j)) * CTA_THREADS)
-  for (int w = blockIdx.x; w < npairs; w += gridDim.x) {
-    __syncthreads();  // the previous pair's reads of the scratch are done
-    const int p = pair_p[w], row = pair_row[w];
-    const int L = lens[row];
-    const float loop = lm[row * 4 + 0], move = lm[row * 4 + 1];
-    const float log_move = lm[row * 4 + 3];
-    const float* T = trans + (size_t)p * 8 * Mk + s0;
-    const float* EM = emis + (size_t)p * Kp * 2 * Mk + s0;
-    // the D->D product over this thread's slots but the last, for the
-    // thread above; the thread below's, for this thread
-    float own_pre_last = 1.f;
-    for (int j = 0; j + 1 < spt; ++j) own_pre_last *= T[7 * Mk + j];
-    float nb_pre = __shfl_up_sync(FULL_MASK, own_pre_last, 1);
-    if (lane == 0 && t) {
-      nb_pre = 1.f;
-      for (int j = 0; j + 1 < spt; ++j) nb_pre *= T[7 * Mk + j - spt];
-    }
+  const int n = SPT ? SPT : a.spt;
+  extern __shared__ float dyn_rows[];
+  float* rows = nullptr;
+  if constexpr (SPT == 0)
+    rows = (scratch ? scratch + (size_t)blockIdx.x * 3 * n * NT
+                    : dyn_rows) + t;
+  CtaCells<SPT, NT> cell(rows, n);
+  for (int w = blockIdx.x; w < a.npairs; w += gridDim.x) {
+    const int p = a.pair_p[w], row = a.pair_row[w];
+    const int L = a.lens[row];
+    const float loop = a.lm[row * 4 + 0], move = a.lm[row * 4 + 1];
+    const float log_move = a.lm[row * 4 + 3];
+    const float4* TR = a.trans + (size_t)p * n * 2 * NT + t;
+    const float2* EM = a.emis + (size_t)p * a.Kp * n * NT + t;
+    // the D->D product over this thread's slots but the last (for the
+    // thread above), and the thread below's (lane 0)
+    float own_pre_last;
+    const float nb_pre =
+        cta_pre_last<OddsMaps, NT>(TR, n, sPre, &own_pre_last);
+#pragma unroll
+    for (int j = 0; j < n; ++j)
+      cell.at(0, j) = cell.at(1, j) = cell.at(2, j) = 0.f;
     float xN = 1.f, xB = move, xJ = 0.f, xC = 0.f, lsc = 0.f;
-    // the previous row's scaled cells of slot s0 - 1, the unscaled D that
-    // entered this thread's slots and the row's scale
+    // the previous row's scaled cells of slot t*SPT - 1, the D that
+    // entered this thread's slots (unscaled) and the row's scale
     float cm = 0.f, ci = 0.f, cd = 0.f, Xprev = 0.f, sc = 1.f;
     int par = 0;
-    const uint8_t* seq = codes + (size_t)row * Lmax;
+    const uint8_t* seq = a.codes + (size_t)row * a.Lmax;
     for (int i = 0; i < L; ++i) {
-      const float* em = EM + (size_t)seq[i] * 2 * Mk;
-      const float* prev = buf + (par ^ 1) * 3 * Mk + t;
-      float* cur = buf + par * 3 * Mk + t;
+      const float2* em = EM + (size_t)__ldg(seq + i) * n * NT;
       float pm = cm, pi = ci, pd = cd;
       float dl = 0.f, C = 0.f, W = 0.f, pre = 1.f;
-      for (int j = 0; j < spt; ++j) {
-        float om = 0.f, oi = 0.f, od = 0.f;
-        if (i) {
-          om = prev[CTA_AT(0, j)] * sc;
-          oi = prev[CTA_AT(1, j)] * sc;
-          od = fmaf(Xprev, pre, prev[CTA_AT(2, j)]) * sc;
-        }
-        const float nm = em[j] * (pm * T[j] + pi * T[Mk + j] +
-                                  pd * T[2 * Mk + j] + xB * T[3 * Mk + j]);
-        const float ni = em[Mk + j] * (om * T[4 * Mk + j] +
-                                       oi * T[5 * Mk + j]);
-        cur[CTA_AT(0, j)] = nm;
-        cur[CTA_AT(1, j)] = ni;
-        cur[CTA_AT(2, j)] = dl;
+      float lm_ = 0.f, li_ = 0.f, ld_ = 0.f;
+#pragma unroll
+      for (int j = 0; j < n; ++j) {
+        const float4 ta = __ldg(TR + (size_t)(2 * j) * NT);
+        const float4 tb = __ldg(TR + (size_t)(2 * j + 1) * NT);
+        const float2 e = __ldg(em + (size_t)j * NT);
+        const float om = cell.at(0, j) * sc;
+        const float oi = cell.at(1, j) * sc;
+        const float od = fmaf(Xprev, pre, cell.at(2, j)) * sc;
+        const float nm = e.x * (pm * ta.x + pi * ta.y + pd * ta.z +
+                                xB * ta.w);
+        const float ni = e.y * (om * tb.x + oi * tb.y);
+        cell.at(0, j) = nm;
+        cell.at(1, j) = ni;
+        cell.at(2, j) = dl;
+        lm_ = nm;
+        li_ = ni;
+        ld_ = dl;
         C += nm + dl;
         W += pre;
-        const float tdd = T[7 * Mk + j];
-        dl = dl * tdd + nm * T[6 * Mk + j];
-        pre *= tdd;
+        dl = dl * tb.w + nm * tb.z;
+        pre *= tb.w;
         pm = om;
         pi = oi;
         pd = od;
       }
-      // this thread's map x -> x A + B, A = pre; the warp's scan
-      float A = pre, Bm = dl;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float Ap = __shfl_up_sync(FULL_MASK, A, o);
-        const float Bp = __shfl_up_sync(FULL_MASK, Bm, o);
-        if (lane >= o) {
-          Bm = fmaf(Bp, A, Bm);
-          A = Ap * A;
-        }
-      }
-      float Aex = __shfl_up_sync(FULL_MASK, A, 1);
-      float Bex = __shfl_up_sync(FULL_MASK, Bm, 1);
-      float Anb = __shfl_up_sync(FULL_MASK, A, 2);
-      float Bnb = __shfl_up_sync(FULL_MASK, Bm, 2);
-      if (lane == 0) Aex = 1.f, Bex = 0.f;
-      if (lane <= 1) Anb = 1.f, Bnb = 0.f;
-      // the warp's E share for the D x entering it: Cw + x Ww
-      const float Cw = warp_sum_f(fmaf(Bex, W, C));
-      const float Ww = warp_sum_f(Aex * W);
-      if (lane == 31) sW[par][wid] = make_float4(A, Bm, Cw, Ww);
-      if (lane == 30) s30[par][wid] = make_float2(A, Bm);
-      __syncthreads();
-      float X = 0.f, E = 0.f, Xown = 0.f, Xpw = 0.f;
-#pragma unroll
-      for (int v = 0; v < CTA_WARPS; ++v) {
-        if (v == wid - 1) Xpw = X;
-        if (v == wid) Xown = X;
-        const float4 m = sW[par][v];
-        E += fmaf(X, m.w, m.z);
-        X = fmaf(X, m.x, m.y);
-      }
-      const float Xt = fmaf(Xown, Aex, Bex);
-      float Xnb;  // the unscaled D that entered the thread below
-      if (lane > 0) {
-        Xnb = fmaf(Xown, Anb, Bnb);
-      } else if (wid > 0) {
-        const float2 m = s30[par][wid - 1];
-        Xnb = fmaf(Xpw, m.x, m.y);
-      } else {
-        Xnb = 0.f;
-      }
-      const float nj = xJ * loop + E * 0.5f;
-      const float nc = xC * loop + E * 0.5f;
+      const CtaRow r = cta_scan<OddsMaps, NT / 32>(
+          pre, dl, C, W, make_float4(lm_, li_, ld_, 0.f), sW[par], s30[par],
+          sLast[par]);
+      const float nj = xJ * loop + r.E * 0.5f;
+      const float nc = xC * loop + r.E * 0.5f;
       const float nn = xN * loop;
       const float nb = (nn + nj) * move;
-      const float mx = fmaxf(fmaxf(fmaxf(E, nj), fmaxf(nc, nn)), TINY);
+      const float mx = fmaxf(fmaxf(fmaxf(r.E, nj), fmaxf(nc, nn)), TINY);
       const float inv = 1.f / mx;
       lsc += logf(mx);
       xJ = nj * inv;
       xC = nc * inv;
       xN = nn * inv;
       xB = nb * inv;
-      if (t) {
-        const float* q = buf + par * 3 * Mk + t - 1;
-        cm = q[CTA_AT(0, spt - 1)] * inv;
-        ci = q[CTA_AT(1, spt - 1)] * inv;
-        cd = fmaf(Xnb, nb_pre, q[CTA_AT(2, spt - 1)]) * inv;
+      // this row's true cells of slot t*SPT - 1: the thread below's last
+      // slot, by shuffle, or for lane 0 from lane 31's copy
+      cm = __shfl_up_sync(FULL_MASK, lm_ * inv, 1);
+      ci = __shfl_up_sync(FULL_MASK, li_ * inv, 1);
+      cd = __shfl_up_sync(FULL_MASK, fmaf(r.Xt, own_pre_last, ld_) * inv, 1);
+      if (lane == 0) {
+        if (wid > 0) {
+          const float4 q = sLast[par][wid - 1];
+          cm = q.x * inv;
+          ci = q.y * inv;
+          cd = fmaf(r.Xnb, nb_pre, q.z) * inv;
+        } else {
+          cm = ci = cd = 0.f;
+        }
       }
-      Xprev = Xt;
+      Xprev = r.Xt;
       sc = inv;
       par ^= 1;
     }
     if (t == 0)
-      out[pair_out[w]] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
+      a.out[a.pair_out[w]] = xC > 0.f ? logf(xC) + lsc + log_move : NEGMASS;
   }
-#undef CTA_AT
 }
 
 template <int S>
@@ -541,21 +510,36 @@ extern "C" int fwd_launch(const void* codes, int Lmax, const void* lens,
   }
 }
 
-// The wide route: nctas CTAs (scratch holds 6 * Mk floats for each)
+// The wide route: the row in registers for the run lengths of the ladder,
+// else in shared memory up to CTA_SMEM_SLOTS slots, else in scratch (3 *
+// Mk floats for each of nctas CTAs; NULL is refused there).
 extern "C" int fwd_cta_launch(const void* codes, int Lmax, const void* lens,
                               const void* lm, const void* emis,
                               const void* trans, const void* pair_p,
                               const void* pair_row, const void* pair_out,
-                              int npairs, int Kp, int Mk, void* out,
-                              void* scratch, int nctas, void* stream) {
+                              int npairs, int Kp, int Mk, int nt,
+                              void* out, void* scratch, int nctas,
+                              void* stream) {
   if (npairs <= 0) return 0;
-  if (Mk <= 0 || Mk % CTA_THREADS || nctas <= 0)
+  if (Mk <= 0 || nt <= 0 || Mk % nt || Mk % CTA_THREADS || nctas <= 0)
     return (int)cudaErrorInvalidValue;
-  fwd_cta_kernel<<<nctas < npairs ? nctas : npairs, CTA_THREADS, 0,
-                   (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
-      (const float*)emis, (const float*)trans, (const int*)pair_p,
-      (const int*)pair_row, (const int*)pair_out, npairs, Kp, Mk,
-      (float*)scratch, (float*)out);
-  return (int)cudaGetLastError();
+  const int spt = Mk / nt;
+  const CtaArgs a{(const uint8_t*)codes, Lmax, (const int*)lens,
+                  (const float*)lm, (const float2*)emis,
+                  (const float4*)trans, (const int*)pair_p,
+                  (const int*)pair_row, (const int*)pair_out, npairs, Kp,
+                  spt, (float*)out};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define PYHMMER_CASE(t, s)                                                 \
+  if (nt == t && spt == s)                                                 \
+    return cta_launch(fwd_cta_kernel<t, s>, t, a, nullptr, 0, nctas, st);
+  PYHMMER_CTA_REGS(PYHMMER_CASE)
+#undef PYHMMER_CASE
+  if (nt != CTA_THREADS) return (int)cudaErrorInvalidValue;
+  if (Mk <= CTA_SMEM_SLOTS)
+    return cta_launch(fwd_cta_kernel<CTA_THREADS, 0>, nt, a, nullptr,
+                      3 * Mk * (int)sizeof(float), nctas, st);
+  if (!scratch) return (int)cudaErrorInvalidValue;
+  return cta_launch(fwd_cta_kernel<CTA_THREADS, 0>, nt, a,
+                    (float*)scratch, 0, nctas, st);
 }

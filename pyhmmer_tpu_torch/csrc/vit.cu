@@ -62,20 +62,17 @@
 //   holds at once (S = 16 and 24: launch_vit), one warp a pair issues
 //   less and is the default.
 //
-// * The wide route, vit_cta_kernel (models over 4,096 slots, common.cuh):
-//   one CTA a pair, each thread a contiguous run of slots.  A thread runs
-//   M and I over its slots and the D chain with NEGMASS entering (its map
-//   (B, C) as above; A, the D->D sum over its slots), then the warps scan
-//   the threads' maps with shuffles and lane 31 writes its warp's map (and
-//   lane 30 its inclusive prefix) to shared memory: one barrier a row,
-//   double-buffered by row parity.  Every thread then composes the warps'
-//   maps itself, giving E and the D entering itself and the thread below
-//   it.  The scratch row holds each slot's M, I and its local D; the true
-//   D, max(local, X + the D->D sum to the slot), is formed when the next
-//   row reads it, so the row is written once.  The previous row's last
-//   slot of the thread below is read after the barrier from the scratch
-//   row, which is not written again until two rows later.  Cells are
-//   clamped at NEGMASS as in the plain version.
+// * The wide route, vit_cta_kernel (models over 4,096 slots): one CTA a
+//   pair, each thread a contiguous run of slots, on the design of
+//   common.cuh, which fwd_cta_kernel shares: its first version was bound
+//   by the L2 bytes of the tables it reads every row (40 a slot) and of
+//   its scratch rows, so the tables are thread-major (one float2 of
+//   emissions and two float4 of transitions a slot, contiguous over the
+//   CTA), and the row's cells stay in registers up to 5,632 slots (in
+//   shared memory up to 18,944, in a global scratch row beyond) instead of
+//   passing through a global scratch of two rows every row; now each
+//   row's instructions and latency bound it.  The scan is this file's (B,
+//   C) map with A, the D->D sum over a thread's slots; one barrier a row.
 //
 // Values stay finite: I cells are clamped at NEGMASS; an M cell is at
 // least xB + tBM + e, and a D cell, made anew from M every row, at least
@@ -371,133 +368,103 @@ vit_kernel(const uint8_t* __restrict__ codes, int Lmax,
   if (threadIdx.x % (32 * NWS) == 0) out[pair_out[w]] = xC + move;
 }
 
-// one position j of the scratch rows [3][SPT][CTA_THREADS] of thread t
-#define CTA_AT(q, j) ((size_t)((q) * spt + (j)) * CTA_THREADS)
-
-// The wide route: scratch holds two rows a CTA, [2][3][SPT][CTA_THREADS].
-__global__ void __launch_bounds__(CTA_THREADS)
-vit_cta_kernel(const uint8_t* __restrict__ codes, int Lmax,
-               const int* __restrict__ lens, const float* __restrict__ lm,
-               const float* __restrict__ emis,   // [P, Kp, 2, Mk] log
-               const float* __restrict__ trans,  // [P, 8, Mk] log
-               const int* __restrict__ pair_p,
-               const int* __restrict__ pair_row,
-               const int* __restrict__ pair_out, int npairs, int Kp, int Mk,
-               float* __restrict__ scratch, float* __restrict__ out) {
-  // per warp and row parity: its map (A, B) and the row's E share C;
-  // lane 30's inclusive map
-  __shared__ float4 sW[2][CTA_WARPS];
-  __shared__ float2 s30[2][CTA_WARPS];
+// The wide route (models over 4,096 slots; the design in common.cuh): one
+// CTA of NT threads a pair, thread t the run of SPT slots t*SPT ..
+// t*SPT+SPT-1, its M, I and D in registers (SPT > 0, the ladder
+// PYHMMER_CTA_REGS) or in a row of shared or global memory (SPT = 0, the
+// run length a.spt).  A thread runs
+// M and I over its slots and the D chain with NEGMASS entering (its map
+// max(x + A, B), A the D->D sum over its slots; its E share the largest M
+// cell), and cta_scan composes the maps, giving E and the D entering each
+// thread.  The cells hold each slot's M, I and local D; the true D,
+// max(local, X + the D->D sum to the slot), is formed when the next row
+// reads it.  Cells are clamped at NEGMASS as in the plain version.
+template <int NT, int SPT>
+__global__ void __launch_bounds__(NT, 1)
+vit_cta_kernel(const CtaArgs a, float* __restrict__ scratch) {
+  __shared__ float4 sW[2][NT / 32];
+  __shared__ float2 s30[2][NT / 32];
+  __shared__ float4 sLast[2][NT / 32];
+  __shared__ float sPre[NT / 32];
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
-  const int spt = Mk / CTA_THREADS;
-  const int s0 = t * spt;
-  float* buf = scratch + (size_t)blockIdx.x * 6 * Mk;
-  for (int w = blockIdx.x; w < npairs; w += gridDim.x) {
-    __syncthreads();  // the previous pair's reads of the scratch are done
-    const int p = pair_p[w], row = pair_row[w];
-    const int L = lens[row];
-    const float loop = lm[row * 4 + 2], move = lm[row * 4 + 3];
-    const float* T = trans + (size_t)p * 8 * Mk + s0;
-    const float* EM = emis + (size_t)p * Kp * 2 * Mk + s0;
-    // the D->D sum over this thread's slots but the last one, for the
-    // thread above (it forms this thread's last D from the scratch row)
-    float own_pre_last = 0.f;
-    for (int j = 0; j + 1 < spt; ++j) own_pre_last += T[7 * Mk + j];
-    // ... and the thread below's, for this thread
-    const float nb_pre_last = __shfl_up_sync(FULL_MASK, own_pre_last, 1);
-    float nb_pre = nb_pre_last;
-    if (lane == 0 && t) {
-      nb_pre = 0.f;
-      for (int j = 0; j + 1 < spt; ++j) nb_pre += T[7 * Mk + j - spt];
-    }
+  const int n = SPT ? SPT : a.spt;
+  extern __shared__ float dyn_rows[];
+  float* rows = nullptr;
+  if constexpr (SPT == 0)
+    rows = (scratch ? scratch + (size_t)blockIdx.x * 3 * n * NT
+                    : dyn_rows) + t;
+  CtaCells<SPT, NT> cell(rows, n);
+  for (int w = blockIdx.x; w < a.npairs; w += gridDim.x) {
+    const int p = a.pair_p[w], row = a.pair_row[w];
+    const int L = a.lens[row];
+    const float loop = a.lm[row * 4 + 2], move = a.lm[row * 4 + 3];
+    const float4* TR = a.trans + (size_t)p * n * 2 * NT + t;
+    const float2* EM = a.emis + (size_t)p * a.Kp * n * NT + t;
+    // the D->D sum over this thread's slots but the last (for the thread
+    // above), and the thread below's (lane 0)
+    float own_pre_last;
+    const float nb_pre =
+        cta_pre_last<MaxPlusMaps, NT>(TR, n, sPre, &own_pre_last);
+#pragma unroll
+    for (int j = 0; j < n; ++j)
+      cell.at(0, j) = cell.at(1, j) = cell.at(2, j) = NEGMASS;
     float xN = 0.f, xB = move, xJ = NEGMASS, xC = NEGMASS;
-    // the previous row's cells of slot s0 - 1 (true values), and the D
+    // the previous row's cells of slot t*SPT - 1 (true values), and the D
     // that entered this thread's slots on the previous row
     float cm = NEGMASS, ci = NEGMASS, cd = NEGMASS, Xprev = NEGMASS;
     int par = 0;
-    const uint8_t* seq = codes + (size_t)row * Lmax;
+    const uint8_t* seq = a.codes + (size_t)row * a.Lmax;
     for (int i = 0; i < L; ++i) {
-      const float* em = EM + (size_t)seq[i] * 2 * Mk;
-      const float* prev = buf + (par ^ 1) * 3 * Mk + t;
-      float* cur = buf + par * 3 * Mk + t;
+      const float2* em = EM + (size_t)__ldg(seq + i) * n * NT;
       float pm = cm, pi = ci, pd = cd;
       float dl = NEGMASS, C = NEGMASS, pre = 0.f;
-      for (int j = 0; j < spt; ++j) {
-        float om = NEGMASS, oi = NEGMASS, od = NEGMASS;
-        if (i) {
-          om = prev[CTA_AT(0, j)];
-          oi = prev[CTA_AT(1, j)];
-          od = fmaxf(fmaxf(prev[CTA_AT(2, j)], Xprev + pre), NEGMASS);
-        }
-        const float ex = em[j], ey = em[Mk + j];
+      float lm_ = NEGMASS, li_ = NEGMASS, ld_ = NEGMASS;
+#pragma unroll
+      for (int j = 0; j < n; ++j) {
+        const float4 ta = __ldg(TR + (size_t)(2 * j) * NT);
+        const float4 tb = __ldg(TR + (size_t)(2 * j + 1) * NT);
+        const float2 e = __ldg(em + (size_t)j * NT);
+        const float om = cell.at(0, j), oi = cell.at(1, j);
+        const float od = fmaxf(fmaxf(cell.at(2, j), Xprev + pre), NEGMASS);
         const float nm = fmaxf(
-            fmaxf(ex + fmaxf(fmaxf(pm + T[j], pi + T[Mk + j]),
-                             pd + T[2 * Mk + j]),
-                  xB + (T[3 * Mk + j] + ex)),
+            fmaxf(e.x + fmaxf(fmaxf(pm + ta.x, pi + ta.y), pd + ta.z),
+                  xB + (ta.w + e.x)),
             NEGMASS);
-        const float ni =
-            fmaxf(ey + fmaxf(om + T[4 * Mk + j], oi + T[5 * Mk + j]),
-                  NEGMASS);
-        cur[CTA_AT(0, j)] = nm;
-        cur[CTA_AT(1, j)] = ni;
-        cur[CTA_AT(2, j)] = dl;
+        const float ni = fmaxf(e.y + fmaxf(om + tb.x, oi + tb.y), NEGMASS);
+        cell.at(0, j) = nm;
+        cell.at(1, j) = ni;
+        cell.at(2, j) = dl;
+        lm_ = nm;
+        li_ = ni;
+        ld_ = dl;
         C = fmaxf(C, nm);
-        const float tdd = T[7 * Mk + j];
-        dl = fmaxf(nm + T[6 * Mk + j], dl + tdd);
-        pre += tdd;
+        dl = fmaxf(nm + tb.z, dl + tb.w);
+        pre += tb.w;
         pm = om;
         pi = oi;
         pd = od;
       }
-      // this thread's map x -> max(x + A, B), A = pre; the warp's scan
-      float A = pre, Bm = dl;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float Ap = __shfl_up_sync(FULL_MASK, A, o);
-        const float Bp = __shfl_up_sync(FULL_MASK, Bm, o);
-        if (lane >= o) {
-          Bm = fmaxf(Bp + A, Bm);
-          A = Ap + A;
+      const CtaRow r = cta_scan<MaxPlusMaps, NT / 32>(
+          pre, dl, C, 0.f, make_float4(lm_, li_, ld_, 0.f), sW[par],
+          s30[par], sLast[par]);
+      // this row's cells of slot t*SPT - 1: the thread below's last slot,
+      // by shuffle, or for lane 0 from lane 31's copy
+      cm = __shfl_up_sync(FULL_MASK, lm_, 1);
+      ci = __shfl_up_sync(FULL_MASK, li_, 1);
+      cd = __shfl_up_sync(
+          FULL_MASK, fmaxf(fmaxf(ld_, r.Xt + own_pre_last), NEGMASS), 1);
+      if (lane == 0) {
+        if (wid > 0) {
+          const float4 q = sLast[par][wid - 1];
+          cm = q.x;
+          ci = q.y;
+          cd = fmaxf(fmaxf(q.z, r.Xnb + nb_pre), NEGMASS);
+        } else {
+          cm = ci = cd = NEGMASS;
         }
       }
-      // exclusive prefixes: this lane's and the lane below's
-      float Aex = __shfl_up_sync(FULL_MASK, A, 1);
-      float Bex = __shfl_up_sync(FULL_MASK, Bm, 1);
-      float Anb = __shfl_up_sync(FULL_MASK, A, 2);
-      float Bnb = __shfl_up_sync(FULL_MASK, Bm, 2);
-      if (lane == 0) Aex = 0.f, Bex = NEGMASS;
-      if (lane <= 1) Anb = 0.f, Bnb = NEGMASS;
-      const float Cw = warp_max_f(C);
-      if (lane == 31) sW[par][wid] = make_float4(A, Bm, Cw, 0.f);
-      if (lane == 30) s30[par][wid] = make_float2(A, Bm);
-      __syncthreads();
-      float X = NEGMASS, E = NEGMASS, Xown = NEGMASS, Xpw = NEGMASS;
-#pragma unroll
-      for (int v = 0; v < CTA_WARPS; ++v) {
-        if (v == wid - 1) Xpw = X;
-        if (v == wid) Xown = X;
-        const float4 m = sW[par][v];
-        E = fmaxf(E, m.z);
-        X = fmaxf(X + m.x, m.y);
-      }
-      const float Xt = fmaxf(Xown + Aex, Bex);
-      float Xnb;  // the D that entered the thread below
-      if (lane > 0) {
-        Xnb = fmaxf(Xown + Anb, Bnb);
-      } else if (wid > 0) {
-        const float2 m = s30[par][wid - 1];
-        Xnb = fmaxf(Xpw + m.x, m.y);
-      } else {
-        Xnb = NEGMASS;
-      }
-      if (t) {
-        const float* nb = buf + par * 3 * Mk + t - 1;
-        cm = nb[CTA_AT(0, spt - 1)];
-        ci = nb[CTA_AT(1, spt - 1)];
-        cd = fmaxf(fmaxf(nb[CTA_AT(2, spt - 1)], Xnb + nb_pre), NEGMASS);
-      }
-      Xprev = Xt;
-      const float xe2 = E + LOG_HALF;
+      Xprev = r.Xt;
+      const float xe2 = r.E + LOG_HALF;
       const float nJ = fmaxf(xJ + loop, xe2);
       const float nC = fmaxf(xC + loop, xe2);
       const float nN = xN + loop;
@@ -507,7 +474,7 @@ vit_cta_kernel(const uint8_t* __restrict__ codes, int Lmax,
       xN = nN;
       par ^= 1;
     }
-    if (t == 0) out[pair_out[w]] = xC + move;
+    if (t == 0) a.out[a.pair_out[w]] = xC + move;
   }
 }
 
@@ -591,21 +558,36 @@ extern "C" int vit_launch(const void* codes, int Lmax, const void* lens,
   }
 }
 
-// The wide route: nctas CTAs (scratch holds 6 * Mk floats for each)
+// The wide route: the row in registers for the run lengths of the ladder,
+// else in shared memory up to CTA_SMEM_SLOTS slots, else in scratch (3 *
+// Mk floats for each of nctas CTAs; NULL is refused there).
 extern "C" int vit_cta_launch(const void* codes, int Lmax, const void* lens,
                               const void* lm, const void* emis,
                               const void* trans, const void* pair_p,
                               const void* pair_row, const void* pair_out,
-                              int npairs, int Kp, int Mk, void* out,
-                              void* scratch, int nctas, void* stream) {
+                              int npairs, int Kp, int Mk, int nt,
+                              void* out, void* scratch, int nctas,
+                              void* stream) {
   if (npairs <= 0) return 0;
-  if (Mk <= 0 || Mk % CTA_THREADS || nctas <= 0)
+  if (Mk <= 0 || nt <= 0 || Mk % nt || Mk % CTA_THREADS || nctas <= 0)
     return (int)cudaErrorInvalidValue;
-  vit_cta_kernel<<<nctas < npairs ? nctas : npairs, CTA_THREADS, 0,
-                   (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, Lmax, (const int*)lens, (const float*)lm,
-      (const float*)emis, (const float*)trans, (const int*)pair_p,
-      (const int*)pair_row, (const int*)pair_out, npairs, Kp, Mk,
-      (float*)scratch, (float*)out);
-  return (int)cudaGetLastError();
+  const int spt = Mk / nt;
+  const CtaArgs a{(const uint8_t*)codes, Lmax, (const int*)lens,
+                  (const float*)lm, (const float2*)emis,
+                  (const float4*)trans, (const int*)pair_p,
+                  (const int*)pair_row, (const int*)pair_out, npairs, Kp,
+                  spt, (float*)out};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define PYHMMER_CASE(t, s)                                                 \
+  if (nt == t && spt == s)                                                 \
+    return cta_launch(vit_cta_kernel<t, s>, t, a, nullptr, 0, nctas, st);
+  PYHMMER_CTA_REGS(PYHMMER_CASE)
+#undef PYHMMER_CASE
+  if (nt != CTA_THREADS) return (int)cudaErrorInvalidValue;
+  if (Mk <= CTA_SMEM_SLOTS)
+    return cta_launch(vit_cta_kernel<CTA_THREADS, 0>, nt, a, nullptr,
+                      3 * Mk * (int)sizeof(float), nctas, st);
+  if (!scratch) return (int)cudaErrorInvalidValue;
+  return cta_launch(vit_cta_kernel<CTA_THREADS, 0>, nt, a,
+                    (float*)scratch, 0, nctas, st);
 }

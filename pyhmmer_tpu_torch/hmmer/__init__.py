@@ -2,7 +2,8 @@
 and ``jackhmmer`` through the PyTorch engine, ``nhmmer`` through the
 long-targets pipeline, and the host-only ``hmmalign`` and ``hmmpress``
 (the port of ``pyhmmer_tpu/hmmer/__init__.py``'s functions of those
-names).  phmmer, jackhmmer and nhmmer build their query models with the
+names; all but ``hmmpress`` take the JAX package's ``cpus``
+argument and ignore it).  phmmer, jackhmmer and nhmmer build their query models with the
 port's :class:`~pyhmmer_tpu_torch.plan7.builder.Builder`, whose E-value
 calibration runs on the same device as the search; hmmscan runs the
 engine with the profile database (HMMs, profiles, or a pressed
@@ -64,8 +65,8 @@ def _query_list(queries):
     return list(queries)
 
 
-def hmmsearch(queries, sequences, *, device="cuda", callback=None,
-              block_residues: Optional[int] = None, device_rows: bool = False,
+def hmmsearch(queries, sequences, *, cpus: int = 0, device="cuda",
+              callback=None, block_residues: Optional[int] = None, device_rows: bool = False,
               **options) -> Iterator[TopHits]:
     """Search HMM profile(s) against a sequence database; yields one
     :class:`TopHits` per query, in query order.
@@ -124,8 +125,8 @@ def _hmmsearch_streamed(queries, seqfile: SequenceFile, alphabet, device,
     return iter(merged)
 
 
-def hmmscan(queries, profiles, *, device="cuda", callback=None,
-            background=None, engine: Optional[SearchEngine] = None,
+def hmmscan(queries, profiles, *, cpus: int = 0, device="cuda",
+            callback=None, background=None, engine: Optional[SearchEngine] = None,
             **options) -> Iterator[TopHits]:
     """Scan sequence(s) against a profile database; yields one
     :class:`TopHits` per query sequence, in query order, with Z = the
@@ -266,7 +267,8 @@ def _scan_via_engine(hmms, queries, alphabet, background, callback,
     return out
 
 
-def phmmer(queries, sequences, *, device="cuda", callback=None,
+def phmmer(queries, sequences, *, cpus: int = 0, device="cuda",
+           callback=None,
            builder: Optional[Builder] = None, device_rows: bool = False,
            **options) -> Iterator[TopHits]:
     """Search query sequence(s) (or digital MSAs) against a sequence
@@ -299,8 +301,9 @@ def phmmer(queries, sequences, *, device="cuda", callback=None,
 
 
 def jackhmmer(queries, sequences, *, max_iterations: int = 5,
-              select_hits=None, checkpoints: bool = False, device="cuda",
-              callback=None, builder: Optional[Builder] = None,
+              select_hits=None, checkpoints: bool = False,
+              cpus: int = 0, device="cuda", callback=None,
+              builder: Optional[Builder] = None,
               device_rows: bool = False, **options):
     """Iterative profile search (``pyhmmer_tpu.hmmer.jackhmmer``); yields
     per query its last :class:`IterationResult`, or with
@@ -354,7 +357,8 @@ def jackhmmer(queries, sequences, *, max_iterations: int = 5,
 
 
 def hmmalign(hmm: HMM, sequences, *, trim: bool = False,
-             digitize: bool = False, all_consensus_cols: bool = True):
+             digitize: bool = False, all_consensus_cols: bool = True,
+             cpus: int = 0):
     """Align sequences to an HMM (``pyhmmer_tpu.hmmer.hmmalign``): one
     Viterbi trace a sequence on the host, then the multiple alignment of
     the traces."""
@@ -401,7 +405,8 @@ def hmmpress(hmms, output: Union[str, os.PathLike]) -> int:
     return n
 
 
-def nhmmer(queries, sequences, *, device="cuda", callback=None,
+def nhmmer(queries, sequences, *, cpus: int = 0, device="cuda",
+           callback=None,
            builder: Optional[Builder] = None, **options
            ) -> Iterator[TopHits]:
     """Search DNA/RNA queries against long nucleotide targets with the

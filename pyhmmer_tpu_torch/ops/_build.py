@@ -57,13 +57,13 @@ SIGNATURES = {
                    _P, _P],
     # the wide route: the same, with Mk for S and a scratch buffer and
     # its CTA count before the stream (msv: after biaslog; vit and fwd:
-    # after out, vit without a route)
+    # after out, vit without a route, and the CTA's threads after Mk)
     "msv_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P, _P, _I, _P],
     "vit_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P, _I, _P],
+                       _I, _P, _P, _I, _P],
     "fwd_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P, _I, _P],
+                       _I, _P, _P, _I, _P],
     # codes, Lmax, lens, lm, emis, trans, pair_p, pair_row, npairs, Kp,
     # S, route, frows, fsc, terms, bsc, stream
     "rows_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -75,13 +75,16 @@ _lib: Optional[ctypes.CDLL] = None
 _count_lock = threading.Lock()
 
 
-def count_launch(namespace: dict) -> None:
-    """Add one to ``launches`` in a wrapper module's ``namespace``, under
-    a lock: the shard engines of ``parallel.mesh.sharded_search`` launch
-    from threads of their own, and ``launches += 1`` is no atomic
-    update."""
+def count_launch(namespace: dict, wide: bool = False) -> None:
+    """Add one to ``launches`` in a wrapper module's ``namespace`` and,
+    for a launch of the wide route (models over 4,096 slots), to
+    ``launches_wide``, under a lock: the shard engines of
+    ``parallel.mesh.sharded_search`` launch from threads of their own,
+    and ``launches += 1`` is no atomic update."""
     with _count_lock:
         namespace["launches"] += 1
+        if wide:
+            namespace["launches_wide"] += 1
 
 
 def _nvcc() -> str:

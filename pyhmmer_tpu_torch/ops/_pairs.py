@@ -7,8 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .batch import (CTA_THREADS, NEGMASS, STRIPES, packed_stripes,
-                    stripe_width)
+from .batch import (CTA_THREADS, NEGMASS, STRIPES, cta_shape,
+                    packed_stripes, stripe_width, table_width)
 
 #: CTAs a SM of the wide route's grid (each walks over pairs)
 CTAS_PER_SM = 2
@@ -66,16 +66,20 @@ def check_packed(codes, lens, lm, emis, trans, wide_s: int,
     ``emis`` [P, Kp, 2, S, 32] and ``trans`` [P, 8, S, 32]
     (``ops/batch.py``: the kernel picks the layout from ``S``, so a table
     in the other one would be misread), and past the widest stripe the
-    wide route's ``emis`` [P, Kp, 2, Mk] and ``trans`` [P, 8, Mk];
+    wide route's thread-major ``emis`` [P, Kp, SPT, W, 32, 2] and
+    ``trans`` [P, SPT, 2, W, 32, 4] (``32 W`` the threads
+    ``batch.cta_shape`` gives the width);
     ``more``, the caller's other arguments as :func:`check_tensors`
     takes them."""
     B, _ = codes.shape
     P, Kp = emis.shape[:2]
-    if trans.dim() == 3:
-        Mk = trans.shape[2]
-        if not wide_width(Mk) or Kp > 32:
+    if trans.dim() == 6:
+        spt, nw = trans.shape[1], trans.shape[3]
+        Mk = table_width(trans)
+        if (not wide_width(Mk) or cta_shape(Mk)[0] != 32 * nw
+                or Kp > 32):
             raise ValueError(f"unsupported table shape {tuple(emis.shape)}")
-        shapes = (P, Kp, 2, Mk), (P, 8, Mk)
+        shapes = (P, Kp, spt, nw, 32, 2), (P, spt, 2, nw, 32, 4)
     else:
         S = packed_stripes(trans)
         if S not in STRIPES or Kp > 32 or trans.dim() not in (4, 5):

@@ -32,13 +32,21 @@ warp lane ``l`` reads its ``S`` slots with coalesced loads:
   kernels.
 
 Models wider than ``32 * STRIPES[-1]`` (4,096) slots take the wide
-route (:func:`stripe_width` is 0 there): one CTA of ``CTA_THREADS``
-threads a (profile, target) pair, each thread owning a contiguous run of
-``Mk / CTA_THREADS`` slots, ``Mk`` padded to a multiple of
-``CTA_THREADS`` (:func:`kernel_width`).  Its tables are unstriped:
-``msv_w16`` [P, Kp, Mk], ``vit_emis`` and ``fwd_emis`` [P, Kp, 2, Mk]
-(the M then the I scores), ``vit_trans`` and ``fwd_trans`` [P, 8, Mk]
-(transition ``t`` of slot ``s`` as above).
+route (:func:`stripe_width` is 0 there): one CTA a (profile, target)
+pair, ``Mk`` padded to a multiple of ``CTA_THREADS`` (:func:`kernel_width`).
+``msv_w16`` is unstriped there, [P, Kp, Mk], read by ``CTA_THREADS``
+threads.  The Forward and Viterbi kernels run ``NT`` threads
+(:func:`cta_shape`), thread ``t`` owning the contiguous run of ``SPT =
+Mk / NT`` slots ``t * SPT .. t * SPT + SPT - 1``, and read thread-major
+tables (:func:`thread_major`): ``vit_emis`` and ``fwd_emis`` [P, Kp,
+SPT, W, 32, 2], ``vit_trans`` and ``fwd_trans`` [P, SPT, 2, W, 32, 4]
+(``W = NT / 32`` warps; element ``(j, w, l)`` holds slot ``(32 w + l) *
+SPT + j``, packed as the narrow layout packs a slot), so the CTA's read
+of one position ``j`` is one contiguous run of 8 or 16 bytes a thread.
+Six dimensions mark the layout: no narrow one has more than five.  The
+row lives in registers for the compiled shapes :data:`CTA_REGS`, else
+in shared memory up to :data:`CTA_SMEM_SLOTS` slots, else in a global
+scratch row (``NT = CTA_THREADS`` for both).
 
 ``SeqDevice`` holds one length bucket of target sequences on an explicit
 device.  The JAX package imports JAX at load, so the packing is
@@ -67,6 +75,19 @@ STRIPES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 #: threads a pair on the wide route (``csrc/common.cuh:CTA_THREADS``);
 #: its model width is padded to a multiple of this
 CTA_THREADS = 512
+
+#: the wide-route Forward and Viterbi kernels compiled with the row in
+#: registers, as (threads a CTA, slots a thread)
+#: (``csrc/common.cuh:PYHMMER_CTA_REGS``: the entries ptxas compiles
+#: without a spill): models of 4,097 to 5,632 slots; every multiple of
+#: ``CTA_THREADS`` up to there has one, so the ladder adds no padding
+CTA_REGS = ((256, 18), (256, 20), (256, 22))
+
+#: the widest model whose row (three floats a slot) the wide-route
+#: Forward and Viterbi kernels keep in shared memory
+#: (``csrc/common.cuh:CTA_SMEM_SLOTS``: 227,328 of a block's 232,448
+#: bytes); wider ones keep it in a global scratch row
+CTA_SMEM_SLOTS = 37 * CTA_THREADS
 
 #: stripe widths from which the Forward and the Viterbi kernel take the
 #: wide table layout (``csrc/fwd.cu:FWD_WIDE_S``, ``csrc/vit.cu:VIT_WIDE_S``)
@@ -169,6 +190,35 @@ def _xexp(a: np.ndarray) -> np.ndarray:
                     0.0).astype(np.float32)
 
 
+def cta_shape(Mk: int):
+    """(threads a CTA, tier) of the wide-route Forward and Viterbi
+    kernels for a model ``Mk`` slots wide: the tier says where the row
+    lives, ``"registers"``, ``"shared"`` or ``"global"`` (module
+    docstring)."""
+    for nt, spt in CTA_REGS:
+        if nt * spt == Mk:
+            return nt, "registers"
+    return CTA_THREADS, "shared" if Mk <= CTA_SMEM_SLOTS else "global"
+
+
+def thread_major(a, nt: int):
+    """[..., Mk] -> [..., SPT, W, 32] with element (j, w, l) = slot
+    (32 w + l) * SPT + j for ``nt`` = 32 W threads, SPT = Mk / nt (a
+    numpy array or a tensor; a view where possible)."""
+    *lead, Mk = a.shape
+    spt = Mk // nt
+    return a.reshape(*lead, nt, spt).swapaxes(-1, -2).reshape(
+        *lead, spt, nt // 32, 32)
+
+
+def thread_minor(t):
+    """The inverse of :func:`thread_major`: [..., SPT, W, 32] ->
+    [..., Mk] (``nt`` read from the shape)."""
+    *lead, spt, nw, _ = t.shape
+    return t.reshape(*lead, spt, 32 * nw).swapaxes(-1, -2).reshape(
+        *lead, 32 * nw * spt)
+
+
 def striped(a):
     """[..., Mk] -> [..., S, 32] with element (j, l) = slot l*S + j (a
     numpy array or a tensor; a view where possible)."""
@@ -184,8 +234,9 @@ def unstriped(t: torch.Tensor) -> torch.Tensor:
 
 def packed_stripes(trans: torch.Tensor) -> int:
     """The stripe width ``S`` of a packed ``fwd_trans`` or ``vit_trans``
-    (either layout), 0 for the wide route's [P, 8, Mk]."""
-    if trans.dim() == 3:
+    (either layout), 0 for the wide route's thread-major [P, SPT, 2, W,
+    32, 4]."""
+    if trans.dim() == 6:
         return 0
     return trans.shape[2] if trans.dim() == 4 else trans.shape[1]
 
@@ -193,8 +244,9 @@ def packed_stripes(trans: torch.Tensor) -> int:
 def table_width(trans: torch.Tensor) -> int:
     """The model width ``Mk`` of a ``fwd_trans`` or ``vit_trans`` in any
     layout."""
-    S = packed_stripes(trans)
-    return 32 * S if S else trans.shape[-1]
+    if trans.dim() == 6:
+        return trans.shape[1] * trans.shape[3] * 32
+    return 32 * packed_stripes(trans)
 
 
 def unpacked(emis: torch.Tensor, trans: torch.Tensor):
@@ -202,8 +254,10 @@ def unpacked(emis: torch.Tensor, trans: torch.Tensor):
     ``fwd_trans``, or ``vit_emis`` and ``vit_trans``, in either layout)
     as plain [P, Kp, Mk] emission tables (M, I) and a [P, 8, Mk]
     transition table."""
-    if trans.dim() == 3:                       # the wide route
-        return emis[:, :, 0], emis[:, :, 1], trans
+    if trans.dim() == 6:                       # the wide route
+        tr = thread_minor(trans.permute(0, 2, 5, 1, 3, 4))
+        return (thread_minor(emis[..., 0]), thread_minor(emis[..., 1]),
+                tr.reshape(trans.shape[0], 8, -1))
     if trans.dim() == 4:                       # the wide layout
         return (unstriped(emis[:, :, 0]), unstriped(emis[:, :, 1]),
                 unstriped(trans))
@@ -216,11 +270,16 @@ def unpacked(emis: torch.Tensor, trans: torch.Tensor):
 def packed(em: np.ndarray, ei: np.ndarray, tr: np.ndarray, wide_s: int):
     """[P, Kp, Mk] emission tables (M, I) and a [P, 8, Mk] transition
     table in the packed layouts (module docstring), the wide one from
-    ``wide_s`` slots a lane on, unstriped on the wide route,
+    ``wide_s`` slots a lane on, thread-major on the wide route,
     contiguous."""
     P, _, Mk = em.shape
     if not stripe_width(Mk):
-        return np.ascontiguousarray(np.stack([em, ei], axis=2)), tr
+        nt, _ = cta_shape(Mk)
+        emis = np.stack([thread_major(em, nt), thread_major(ei, nt)],
+                        axis=-1)
+        trans = thread_major(tr.reshape(P, 2, 4, Mk), nt).transpose(
+            0, 3, 1, 4, 5, 2)
+        return np.ascontiguousarray(emis), np.ascontiguousarray(trans)
     if Mk // 32 >= wide_s:
         emis = np.stack([striped(em), striped(ei)], axis=2)
         trans = striped(tr)
@@ -233,7 +292,8 @@ def packed(em: np.ndarray, ei: np.ndarray, tr: np.ndarray, wide_s: int):
 
 def kernel_tables(f: dict) -> dict:
     """The stage kernels' tables (see the module docstring), padded to
-    ``Mk = kernel_width(Mp)`` and striped (unstriped on the wide route),
+    ``Mk = kernel_width(Mp)`` and striped (thread-major on the wide
+    route, ``msv_w16`` unstriped),
     from the shared fields ``f``."""
     P, Kp, Mp = f["msc"].shape
     Mk = kernel_width(Mp)

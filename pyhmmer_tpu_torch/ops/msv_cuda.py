@@ -22,8 +22,10 @@ import torch
 from . import _build, _pairs
 from .batch import ProfileBatch, SeqDevice, unstriped
 
-#: kernel launches made by :func:`msv_scores` (reset by the caller)
+#: kernel launches made by :func:`msv_scores` (reset by the caller), and
+#: those of them on the wide route
 launches = 0
+launches_wide = 0
 
 BASE = 190.0
 T11 = 50.0 / 51.0
@@ -83,7 +85,7 @@ def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
             P_(tjb), P_(p1), B, P, Kp, w16.shape[2], P_(dx), P_(ovf),
             P_(biaslog), _build.stream_ptr(codes))
         _build.check(err, "msv_launch")
-    _build.count_launch(globals())
+    _build.count_launch(globals(), wide=w16.dim() == 3)
     return dx, ovf, biaslog
 
 

@@ -17,10 +17,12 @@ import torch
 
 from . import _build, _pairs
 from .batch import (NEGMASS, VIT_WIDE_S, ProfileBatch, SeqDevice,
-                    packed_stripes, unpacked)
+                    cta_shape, packed_stripes, table_width, unpacked)
 
-#: kernel launches made by :func:`vit_scores` (reset by the caller)
+#: kernel launches made by :func:`vit_scores` (reset by the caller), and
+#: those of them on the wide route
 launches = 0
+launches_wide = 0
 
 LOG_HALF = math.log(0.5)
 
@@ -46,11 +48,11 @@ def vit_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
     length model (the log loop and move are columns 2 and 3); ``emis``
     f32 (M, I) log emission scores and ``trans`` f32 log transitions,
     packed ([P, Kp, S, 32, 2] and [P, S, 2, 32, 4], or from ``S =
-    VIT_WIDE_S`` on [P, Kp, 2, S, 32] and [P, 8, S, 32]:
-    past 4,096 slots the wide route's [P, Kp, 2, Mk] and [P, 8,
-    Mk]: ``ops/batch.py``); ``rows`` [n] int64; ``need`` [P, n] bool;
-    ``pairs`` None or the int32 [3, npairs] list of ``need``
-    (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
+    VIT_WIDE_S`` on [P, Kp, 2, S, 32] and [P, 8, S, 32]; past 4,096
+    slots the wide route's thread-major [P, Kp, SPT, W, 32, 2] and [P,
+    SPT, 2, W, 32, 4]: ``ops/batch.py``); ``rows`` [n] int64; ``need``
+    [P, n] bool; ``pairs`` None or the int32 [3, npairs] list of
+    ``need`` (``_pairs.host_pairs``).  Returns scores [P, n] f32 nats."""
     return _scores(codes, lens, lm, emis, trans, rows, need, pairs, "auto")
 
 
@@ -71,16 +73,21 @@ def _scores(codes, lens, lm, emis, trans, rows, need, pairs, route: str):
     if S == 0:                                # the wide route
         if route != "auto":
             raise ValueError(f"route {route!r}: the wide route has one")
-        Mk = trans.shape[2]
+        Mk = table_width(trans)
+        nt, tier = cta_shape(Mk)
         nctas = _pairs.cta_grid(codes.device, npairs)
-        scratch = torch.empty((nctas, 6, Mk), dtype=torch.float32,
-                              device=codes.device)
+        # a scratch row a CTA only where the row fits neither registers
+        # nor shared memory
+        scratch = (torch.empty((nctas, 3, Mk), dtype=torch.float32,
+                               device=codes.device)
+                   if tier == "global" else None)
         err = _build.lib().vit_cta_launch(
             P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis),
             P_(trans), P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp,
-            Mk, P_(out), P_(scratch), nctas, _build.stream_ptr(codes))
+            Mk, nt, P_(out), None if scratch is None else P_(scratch),
+            nctas, _build.stream_ptr(codes))
         _build.check(err, "vit_cta_launch")
-        _build.count_launch(globals())
+        _build.count_launch(globals(), wide=True)
         return out
     err = _build.lib().vit_launch(
         P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),

@@ -258,8 +258,9 @@ def test_round_up(x, m, want):
 def test_stripe_width():
     """Past the widest stripe (4,096 slots) the kernels take the wide
     route: stripe width 0, the width padded to a multiple of
-    ``CTA_THREADS``, and a ``ProfileBatch`` there packs the unstriped
-    tables (``ops/batch.py``)."""
+    ``CTA_THREADS``, and a ``ProfileBatch`` there packs MSV's unstriped
+    table and the thread-major Forward and Viterbi tables
+    (``ops/batch.py``)."""
     assert [TB.stripe_width(Mp) for Mp in (32, 64, 96, 384, 1024, 2048,
                                            4096)] \
         == [1, 2, 3, 12, 32, 64, 128]
@@ -275,8 +276,9 @@ def test_stripe_width():
     assert (tpb.S, tpb.Mk) == (0, 4608)
     assert tpb.msv_w16.shape == (1, Kp, 4608)
     for name in ("vit", "fwd"):
-        assert getattr(tpb, name + "_emis").shape == (1, Kp, 2, 4608)
-        assert getattr(tpb, name + "_trans").shape == (1, 8, 4608)
+        # 256 threads of 18 slots (ops/batch.py:cta_shape)
+        assert getattr(tpb, name + "_emis").shape == (1, Kp, 18, 8, 32, 2)
+        assert getattr(tpb, name + "_trans").shape == (1, 18, 2, 8, 32, 4)
         assert TB.packed_stripes(getattr(tpb, name + "_trans")) == 0
     em, ei, tr = TB.unpacked(tpb.vit_emis, tpb.vit_trans)
     assert torch.equal(em[0, :, :4100], torch.from_numpy(

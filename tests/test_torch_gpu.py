@@ -548,11 +548,13 @@ def test_phmmer_on_card_matches_cpu(cuda):
         assert th.reported[0].name == q.name
 
 
-@pytest.mark.parametrize("M", [4200, 9000])
+@pytest.mark.parametrize("M", [4200, 5600, 9000, 18900])
 def test_wide_route_matches_plain(cuda, M):
     """Models over 4,096 slots (one CTA a pair): MSV dx and ovf identical
     on every pair (int32 cells), biaslog within 1e-4 nats, Viterbi and
-    Forward within their bars."""
+    Forward within their bars, with the row in registers (M 4,200, and
+    5,600 at the top of the ladder), in shared memory (9,000) and in a
+    global scratch row (18,900)."""
     h = syn.sample_models((M,), seed=M + 1)[0]
     aa = h.alphabet
     pb = TB.ProfileBatch([Profile(M, aa).configure(h, Background(aa), 400,

@@ -1,13 +1,17 @@
 """Models wider than the kernels' 4,096-slot stripes: the wide route of
-the port (``ops/batch.py``: unstriped tables padded to a multiple of
-``CTA_THREADS``; ``csrc/{msv,vit,fwd}.cu``: one CTA a pair) against the
-JAX package, on the CPU, where the wrappers run the kernels' plain
-versions over the wide tables.  At a padded width of 4,224 (Mk 4,608)
-the MSV ``dx`` equals the XLA scan ``ops.batch._msv_kernel``'s on every
-pair neither side flags, and ``ovf`` everywhere; Viterbi and Forward
-are within 0.05 nats of ``_viterbi_kernel`` and ``_forward_kernel``.
-An M 4,200 model's ``hmmsearch(device="cpu")`` reports the JAX engine's
-rows.  Every width up to 100,000 slots has a route."""
+the port (``ops/batch.py``: tables padded to a multiple of
+``CTA_THREADS``, MSV's unstriped, Forward's and Viterbi's thread-major;
+``csrc/{msv,vit,fwd}.cu``: one CTA a pair) against the JAX package, on
+the CPU, where the wrappers run the kernels' plain versions over the
+wide tables.  At a padded width of 4,224 (Mk 4,608) the MSV ``dx``
+equals the XLA scan ``ops.batch._msv_kernel``'s on every pair neither
+side flags, and ``ovf`` everywhere; Viterbi and Forward are within 0.05
+nats of ``_viterbi_kernel`` and ``_forward_kernel`` there and at a
+width of each tier of the Forward and Viterbi kernels (the row in
+registers, in shared memory, in a global scratch row).  The
+thread-major tables give back the plain ones exactly.  An M 4,200
+model's ``hmmsearch(device="cpu")`` reports the JAX engine's rows.
+Every width up to 100,000 slots has a route."""
 
 import numpy as np
 import pytest
@@ -34,26 +38,75 @@ N, LMAX = 20, 160
 BAR = 0.05
 
 
-@pytest.fixture(scope="module")
-def wide():
-    """(port model, port profile batch, JAX profile batch, lanes) at Mp
-    4,224."""
+def wide_case(M, Mp, n, lmax):
+    """(port model, port profile batch, JAX profile batch, lanes) of a
+    sampled model of length ``M`` at the padded width ``Mp``."""
     h = syn.sample_models((M,), seed=17)[0]
     jh = jax_hmm(h)
     prof = Profile(M, h.alphabet).configure(h, Background(h.alphabet), 400,
                                             multihit=True)
     jprof = JProfile(M, jh.alphabet).configure(
         jh, JBackground(jh.alphabet), 400, multihit=True)
-    codes, lengths = syn.make_lanes([h], N, LMAX, seed=18)
-    return (h, TB.ProfileBatch([prof], Mp=MP), JB.ProfileBatch([jprof],
-                                                                Mp=MP),
+    codes, lengths = syn.make_lanes([h], n, lmax, seed=18)
+    return (h, TB.ProfileBatch([prof], Mp=Mp), JB.ProfileBatch([jprof],
+                                                                Mp=Mp),
             codes, lengths)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """(port model, port profile batch, JAX profile batch, lanes) at Mp
+    4,224."""
+    return wide_case(M, MP, N, LMAX)
 
 
 def test_tables_take_the_wide_route(wide):
     _, tpb, _, _, _ = wide
     assert (tpb.S, tpb.Mk) == (0, MK)
-    assert tpb.msv_w16.dim() == 3 and tpb.fwd_trans.dim() == 3
+    # MSV's unstriped words; Forward's and Viterbi's thread-major tables,
+    # marked by their six dimensions, for 256 threads of 18 slots
+    assert tpb.msv_w16.dim() == 3
+    assert TB.cta_shape(MK) == (256, "registers")
+    for name in ("fwd", "vit"):
+        assert getattr(tpb, name + "_trans").dim() == 6
+        assert getattr(tpb, name + "_trans").shape[1:] == (18, 2, 8, 32, 4)
+        assert TB.packed_stripes(getattr(tpb, name + "_trans")) == 0
+        assert TB.table_width(getattr(tpb, name + "_trans")) == MK
+
+
+#: padded widths at each cut-off of the wide Forward and Viterbi kernels:
+#: the register ladder's narrowest and widest (Mk 4,608 and 5,632), the
+#: first width with the row in shared memory (Mk 6,144), the wide phmmer's
+#: (9,024), the widest in shared memory (18,944), the first in a global
+#: scratch row (Mk 19,456), the titin fragment's (35,008)
+TIER_MP = {4097: "registers", 5632: "registers", 5633: "shared",
+           9024: "shared", 18944: "shared", 18945: "global",
+           35008: "global"}
+
+
+@pytest.mark.parametrize("Mp", sorted(TIER_MP))
+def test_thread_major_round_trip(Mp):
+    """``packed`` then ``unpacked`` of the thread-major layout gives back
+    the plain [P, Kp, Mk] emission and [P, 8, Mk] transition tables
+    exactly, at the threads a CTA its tier takes."""
+    Mk = TB.kernel_width(Mp)
+    nt, tier = TB.cta_shape(Mk)
+    assert tier == TIER_MP[Mp] and Mk % nt == 0
+    rng = np.random.default_rng(Mp)
+    em, ei = rng.random((2, 2, 3, Mk), dtype=np.float32)
+    tr = rng.random((2, 8, Mk), dtype=np.float32)
+    emis, trans = TB.packed(em, ei, tr, TB.FWD_WIDE_S)
+    spt = Mk // nt
+    assert emis.shape == (2, 3, spt, nt // 32, 32, 2)
+    assert trans.shape == (2, spt, 2, nt // 32, 32, 4)
+    # slot s of thread t = 32 w + l at position j = s - t * spt
+    s = Mk - 1 - spt // 2
+    t, j = divmod(s, spt)
+    assert trans[1, j, 1, t // 32, t % 32, 3] == tr[1, 7, s]
+    assert emis[1, 2, j, t // 32, t % 32, 0] == em[1, 2, s]
+    back = TB.unpacked(torch.from_numpy(emis), torch.from_numpy(trans))
+    for got, want in zip(back, (em, ei, tr)):
+        assert torch.equal(got, torch.from_numpy(want))
 
 
 def test_msv_matches_xla_scan(wide):
@@ -72,12 +125,41 @@ def test_msv_matches_xla_scan(wide):
     np.testing.assert_array_equal(dx[clean], dx2[clean])
 
 
-@pytest.mark.parametrize("name", ["vit", "fwd"])
-def test_filter_matches_xla_scan(wide, name):
-    h, tpb, jpb, codes, lengths = wide
+#: the filter comparison's widths besides Mp 4,224 (the ``wide`` fixture):
+#: (model length, Mp), the ladder's widest, the first shared-memory width
+#: and the first global one, against fewer, shorter lanes
+FILTER_WIDTHS = {"Mk5632": (5600, 5632), "Mk6144": (5633, 5633),
+                 "Mk19456": (18900, 18945)}
+FILTER_CASES = ([(name, None) for name in ("vit", "fwd")]
+                + [(name, w) for w in FILTER_WIDTHS for name in ("vit",
+                                                                 "fwd")])
+
+
+@pytest.fixture(scope="module")
+def wide_cases():
+    """The ``FILTER_WIDTHS`` cases, built once each."""
+    cache = {}
+
+    def get(width):
+        if width not in cache:
+            M_, Mp = FILTER_WIDTHS[width]
+            cache[width] = wide_case(M_, Mp, 10, 100)
+        return cache[width]
+    return get
+
+
+@pytest.mark.parametrize(
+    "name,width", FILTER_CASES,
+    ids=[n if w is None else f"{n}-{w}" for n, w in FILTER_CASES])
+def test_filter_matches_xla_scan(wide, wide_cases, name, width):
+    h, tpb, jpb, codes, lengths = wide if width is None else \
+        wide_cases(width)
+    if width is not None:
+        assert TB.cta_shape(tpb.Mk)[1] == TIER_MP[FILTER_WIDTHS[width][1]]
+    n = len(lengths)
     dev = TB.SeqDevice(codes, lengths, h.alphabet.nonresidue_code)
     rng = np.random.default_rng(19)
-    cols = rng.permutation(N)[:12]
+    cols = rng.permutation(n)[:12]
     need = rng.random((1, len(cols))) < 0.75
     need[0, :2] = True
     fn = {"vit": vit_cuda.viterbi, "fwd": fwd_cuda.forward}[name]
@@ -94,12 +176,16 @@ def test_filter_matches_xla_scan(wide, name):
 def test_every_width_has_a_route(Mp):
     """Up to the 100,000 residues of the longest target (a phmmer query
     of that length): the wide route's width, and tables of that width
-    that the Forward, Viterbi and MSV wrappers' checks accept."""
+    that the Forward, Viterbi and MSV wrappers' checks accept; the
+    Forward and Viterbi check refuses the width's tables laid out for
+    another CTA size, or unstriped."""
     Mk = TB.kernel_width(Mp)
     assert TB.stripe_width(Mp) == 0 and Mk >= Mp
     assert Mk % TB.CTA_THREADS == 0 and Mk - Mp < TB.CTA_THREADS
-    em = torch.zeros((1, 2, 2, Mk))
-    tr = torch.zeros((1, 8, Mk))
+    zeros = np.zeros((1, 2, Mk), dtype=np.float32)
+    em, tr = (torch.from_numpy(a) for a in TB.packed(
+        zeros, zeros, np.zeros((1, 8, Mk), dtype=np.float32),
+        TB.FWD_WIDE_S))
     codes = torch.zeros((1, 4), dtype=torch.uint8)
     lens = torch.ones((1,), dtype=torch.int32)
     _pairs.check_packed(codes, lens, torch.zeros((1, 4)), em, tr,
@@ -108,9 +194,17 @@ def test_every_width_has_a_route(Mp):
                                               dtype=torch.int16),
                                   torch.int16, None)},
                          torch.zeros((1, 2, Mk), dtype=torch.int16))
-    with pytest.raises(ValueError):
-        _pairs.check_packed(codes, lens, torch.zeros((1, 4)),
-                            em[..., :-32], tr[..., :-32], TB.FWD_WIDE_S, {})
+    other = 768 - TB.cta_shape(Mk)[0]          # 256 <-> 512 threads
+    for bad_em, bad_tr in (
+            (TB.thread_major(torch.zeros((1, 2, Mk, 2)).movedim(-1, 1),
+                             other).movedim(1, -1),
+             TB.thread_major(torch.zeros((1, 2, 4, Mk)), other
+                             ).permute(0, 3, 1, 4, 5, 2)),
+            (torch.zeros((1, 2, 2, Mk)), torch.zeros((1, 8, Mk)))):
+        with pytest.raises(ValueError):
+            _pairs.check_packed(codes, lens, torch.zeros((1, 4)),
+                                bad_em.contiguous(), bad_tr.contiguous(),
+                                TB.FWD_WIDE_S, {})
 
 
 def test_engine_groups_wide_models():
