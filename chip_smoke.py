@@ -7,9 +7,11 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 4,002 targets) and fails (non-zero exit) on any of:
 
 1. environment: no CUDA device, a device that is not sm_90, the port's
-   host native library missing, or a kernel that does not build (the
-   DPX, permute, vote and reduce instructions of the MSV kernels are
-   counted from ``cuobjdump -sass``);
+   host native library missing, a kernel that does not build (the DPX,
+   permute, vote and reduce instructions of the MSV kernels, the wide
+   route's ``msv_cta_kernel<R>`` among them, are counted from
+   ``cuobjdump -sass``), or a wide-route instance (``fwd_cta_kernel``,
+   ``vit_cta_kernel``, ``msv_cta_kernel``) that spills;
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at main-path shapes (for MSV also the widest chunk x the
    longest bucket; for Forward also the launch with the most pairs of
@@ -62,7 +64,10 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    each kernel against its plain version at Mk 4,608 (a sampled M 4,200
    model) and 9,216 (the model built from the 9,000-residue target)
    against the 512 bucket, and at 35,328 (the 35,000-residue target's)
-   against 8 lanes; then phmmer with the 9,000-residue target as the
+   against 8 lanes, and MSV at the 9,000-residue query's calibration
+   launch (200 lanes of 200 residues), each wide MSV record with its
+   ``bias_kernel`` and ``msv_cta_kernel`` device times
+   (``torch.profiler``); then phmmer with the 9,000-residue target as the
    query against the block, once warm and three timed runs (its query
    its own best hit), one run with the cascade forced (its launches
    counted, its rows those of the timed runs) and its rows against the
@@ -117,6 +122,7 @@ timed on its parity call alone.
 """
 
 import contextlib
+import importlib.util
 import json
 import os
 import re
@@ -146,6 +152,19 @@ from pyhmmer_tpu_torch.parallel import _worker, mesh  # noqa: E402
 from pyhmmer_tpu_torch.plan7 import (Background, Builder,  # noqa: E402
                                      HMMPressedFile, Pipeline, Profile)
 
+
+def _script(name):
+    """The module ``scripts/<name>.py`` of this checkout."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: each kernel's device ms a call (``torch.profiler``)
+device_ms = _script("bench_torch_wide").device_ms
+
 NEG_LIVE = -1e29
 #: kernel-vs-plain bars (nats): f32 summation order only
 VIT_TOL = 1e-3
@@ -164,13 +183,18 @@ V_MU_TOL = 1e-3
 #: operations over the card's peak rate for their type and the bytes of
 #: its inputs (each read once) and outputs (each written once) over the
 #: memory rate; one H100 SXM (NVIDIA's data sheet): 3.35e12 B/s, 67e12
-#: f32 FLOP/s outside the tensor cores, and 132 SMs x 64 integer lanes x
-#: 1.98 GHz = 16.7e12 int32 operations/s, taken twice for int16x2 (two
-#: 16-bit cells per lane; the DPX rate is not published).  Operations per
-#: DP cell (M x L, real widths and lengths, pairs the launch computes):
-#: MSV 4 (HMMER's max with B, add bias, subtract cost, max into E) plus
-#: the bias filter's 10 float operations per (profile, residue); Forward
-#: 16 (M 8, I 4, D 3, E 1) at the FMA rate; rows below.  Viterbi,
+#: f32 FLOP/s outside the tensor cores, and 132 SMs x 64 integer
+#: instructions a clock (32-bit add, minimum, maximum at compute
+#: capability 9.0) x 1.98 GHz = 16.7e12 integer instructions/s.  Per DP
+#: cell (M x L, real widths and lengths, pairs the launch computes): MSV
+#: 1.25 instructions: HMMER's max with B, add of the cost, clamp at 0 and
+#: max into E take, for a 32-bit word of two 16-bit cells, one
+#: VIMNMX.S16x2.RELU, one VIADDMNMX.S16x2 and half a VIMNMX3.S16x2.RELU
+#: (the row maximum folds two words an instruction; phase ``sass``
+#: counts 2.54 a word in msv_cta_kernel<24,0>), the DPX issue rate, not
+#: published, taken as the integer rate; plus the bias filter's 10 float
+#: operations per (profile, residue); Forward 16 (M 8, I 4, D 3, E 1) at
+#: the FMA rate; rows below.  Viterbi,
 #: max-plus, has no FMA: per cell the
 #: function needs 10 FADD (M 5, I 3, D 2) and 6 FMNMX (M 3 over its four
 #: predecessors, I 1, D 1, E 1), at the issue rates of compute capability
@@ -179,10 +203,10 @@ V_MU_TOL = 1e-3
 #: x 1.98 GHz
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
-INT16X2_RATE = 2 * 132 * 64 * 1.98e9
+INT_RATE = 132 * 64 * 1.98e9
 FADD_RATE = 132 * 128 * 1.98e9
 FMNMX_RATE = 132 * 64 * 1.98e9
-MSV_OPS, BIAS_FLOPS, FILTER_FLOPS = 4, 10, 16
+MSV_INSNS, BIAS_FLOPS, FILTER_FLOPS = 1.25, 10, 16
 VIT_FADD, VIT_FMNMX = 10, 6
 #: the survivor rows, counted from the two parsers' recurrences at the
 #: same issue rates (FMUL, FADD and FFMA issue alike, 128 a clock a SM):
@@ -362,23 +386,31 @@ def phase_environment(smi):
                          for k, v in ptxas.items()
                          if k.startswith("vit_kernel<")},
         note="registers, spill store and load bytes")
-    # the wide route's Forward and Viterbi kernels: fwd_cta_kernel<NT,
-    # SPT>, NT threads, SPT slots a thread (0: the row in memory); none
-    # may spill (csrc/common.cuh:PYHMMER_CTA_REGS)
+    # the wide route's kernels: fwd_cta_kernel<NT, SPT> and
+    # vit_cta_kernel<NT, SPT>, NT threads, SPT slots a thread (0: the row
+    # in memory; csrc/common.cuh:PYHMMER_CTA_REGS), and
+    # msv_cta_kernel<R, STAGED>, R words a thread (0: the row in shared
+    # memory, STAGED 1 with the table rows staged there;
+    # csrc/msv.cu:PYHMMER_MSV_CTA_REGS); none may spill
+    prefixes = ("fwd_cta_kernel<", "vit_cta_kernel<", "msv_cta_kernel<")
     cta = {k: (v["regs"], v.get("spill_st", 0), v.get("spill_ld", 0))
-           for k, v in ptxas.items()
-           if k.startswith(("fwd_cta_kernel<", "vit_cta_kernel<"))}
+           for k, v in ptxas.items() if k.startswith(prefixes)}
     say("cta_spills", **cta, note="registers, spill store and load bytes")
-    if len(cta) < 2 or any(st or ld for _, st, ld in cta.values()):
-        fail(f"wide-route Forward/Viterbi instances spill or are missing: "
-             f"{cta}")
-    say("sass", **sass_summary(_build.LIB, "msv_kernel"))
+    missing = [p for p in prefixes if not any(k.startswith(p) for k in cta)]
+    msv_cta = {k for k in cta if k.startswith("msv_cta_kernel<")}
+    msv_want = {"msv_cta_kernel<%d,%d>" % rs for rs in
+                [(r, 0) for r in B.MSV_CTA_REGS] + [(0, 0), (0, 1)]}
+    if missing or msv_cta != msv_want or any(
+            st or ld for _, st, ld in cta.values()):
+        fail(f"wide-route instances spill or are missing: {cta}")
+    say("sass", **sass_summary(_build.LIB, ("msv_kernel", "msv_cta_kernel")))
 
 
-def sass_summary(lib, kernel):
-    """Opcode counts of the DPX, permute, vote and reduce instructions in
-    each compiled ``kernel<S>`` of ``lib`` (``cuobjdump -sass``), to show
-    that the 16-bit intrinsics compiled to DPX instructions."""
+def sass_summary(lib, kernels):
+    """Opcode counts of the DPX, permute, vote, reduce and reducing
+    barrier instructions in each compiled ``kernel<S>`` of ``lib`` whose
+    name is one of ``kernels`` (``cuobjdump -sass``), to show that the
+    16-bit intrinsics compiled to DPX instructions."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     try:
         out = subprocess.run([tool, "-sass", lib], capture_output=True,
@@ -388,13 +420,14 @@ def sass_summary(lib, kernel):
     counts, name = {}, None
     for line in out.splitlines():
         if "Function :" in line:
-            m = re.search(r"Function : _Z\d+(\w+?)ILi(\d+)E", line)
-            name = (f"{m.group(1)}<{m.group(2)}>"
-                    if m and m.group(1) == kernel else None)
+            m = re.search(r"Function : _Z\d+(\w+?)I((?:L[ib]\d+E)+)E", line)
+            name = (f"{m.group(1)}<"
+                    f"{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+                    if m and m.group(1) in kernels else None)
             continue
         m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
                       line)
-        if name and m and re.match(r"(VI|VHMNMX|PRMT|VOTE|REDUX)",
+        if name and m and re.match(r"(VI|VHMNMX|PRMT|VOTE|REDUX|BAR\.RED)",
                                    m.group(1)):
             op = counts.setdefault(name, {})
             op[m.group(1)] = op.get(m.group(1), 0) + 1
@@ -445,10 +478,19 @@ def captured(calls_of, run):
     return result, calls
 
 
+def msv_label(pb):
+    """The MSV kernel's route of ``pb``: on the wide route its CTA size
+    and where its row lives (``batch.msv_cta_shape``)."""
+    if pb.S:
+        return "MSV narrow route"
+    return "MSV %d threads, row in %s" % B.msv_cta_shape(pb.Mk)
+
+
 def msv_parity(pb, dev, reps_k, reps_p, label, tpu):
     """The MSV kernel against ``msv_plain`` on every pair of ``pb`` x
     ``dev`` (ovf identical, dx exact on unflagged pairs, biaslog within
-    its bar), timed in turns."""
+    its bar), timed in turns; on the wide route also each of its two
+    kernels' device time (``bias_kernel``, ``msv_cta_kernel``)."""
     args = (dev.codes, dev.lens, pb.msv_w16, pb.msv_scal, pb.msv_odds,
             dev.tjb, dev.p1)
     k = msv_cuda.msv_scores(*args)
@@ -472,9 +514,12 @@ def msv_parity(pb, dev, reps_k, reps_p, label, tpu):
     rec = dict(shape=shape, tpu=tpu, max_abs_err=berr.max().item(), ms=ms,
                plain_ms=plain_ms, flagged=int((p[1] > 0).sum()),
                cells=cells,
-               **bound(MSV_OPS * cells / INT16X2_RATE
+               **bound(MSV_INSNS * cells / INT_RATE
                        + BIAS_FLOPS * pb.P * dev.lengths.sum() / F32_RATE,
                        args, k))
+    if not pb.S:
+        rec["device_ms"] = device_ms(lambda: msv_cuda.msv_scores(*args),
+                                     ("bias_kernel", "msv_cta_kernel"))
     say("parity", kernel="msv", **rec,
         bar="ovf identical; dx exact on unflagged pairs; "
             "biaslog <= 0.25*(2e-3+1e-6 L)")
@@ -1107,7 +1152,8 @@ def phase_wide(smi, targets, parity):
     build35_s = time.time() - t
     reset_launches()
     t = time.time()
-    h9, _, _ = builder.copy().build(q9k, bg)
+    (h9, _, _), calls = captured([(msv_cuda, "msv")],
+                                 lambda: builder.copy().build(q9k, bg))
     build9_s = time.time() - t
     build_launches = read_launches()
     if build_launches["vit_wide"] != 1 or build_launches["msv_wide"] != 1:
@@ -1124,8 +1170,8 @@ def phase_wide(smi, targets, parity):
         if pb.S:
             fail(f"wide: M {h.M} did not take the wide route")
         nt, tier = B.cta_shape(pb.Mk)
-        label = f"wide route, M {h.M} (Forward/Viterbi {nt} threads, " \
-                f"row in {tier}): "
+        label = f"wide route, M {h.M} ({msv_label(pb)}; Forward/Viterbi " \
+                f"{nt} threads, row in {tier}): "
         parity["msv"].append(msv_parity(pb, dev, 5, 1, label,
                                         "_msv_pallas2"))
         cols = torch.arange(0, dev.B, 8 if dev.B > 64 else 1,
@@ -1136,6 +1182,12 @@ def phase_wide(smi, targets, parity):
             parity[name].append(survivor_parity(
                 name, survivor_args(name, pb, dev, cols, need.to("cuda")),
                 None, pb.M, 5, 1, label, "batch XLA scan"))
+
+    # the 9,000-residue query's calibration launch (P1 x B200 x L200)
+    pb, seq = calls[0][0]
+    parity["msv"].append(msv_parity(
+        pb, seq, 20, 1, f"wide route, the M {h9.M} query's calibration "
+        f"launch ({msv_label(pb)}): ", "_msv_pallas2"))
 
     ncmp = len(targets)
     t = time.time()
@@ -1263,7 +1315,7 @@ def phase_nhmmer(smi, parity):
     route = ("%d threads, row in %s" % B.cta_shape(pb.Mk) if not pb.S
              else "narrow route")
     label = (f"nhmmer's largest gate launch ({k + 1} of {len(calls[0])}; "
-             f"Forward/Viterbi {route}): ")
+             f"{msv_label(pb)}; Forward/Viterbi {route}): ")
     parity["msv"].append(msv_parity(pb, dev, 3, 0, label,
                                     "_msv_pallas (msv_scores_pallas)"))
     # the JAX package's gates: _vit_pallas, and _fwd_pallas2 up to Mp

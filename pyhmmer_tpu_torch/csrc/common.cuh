@@ -18,8 +18,9 @@
 // contiguous run of SPT = Mk / NT slots t*SPT .. t*SPT+SPT-1 (Mk is a
 // runtime argument, a multiple of CTA_THREADS: ops/batch.py:kernel_width);
 // a grid of as many CTAs as the card holds at once walks over the pairs.
-// MSV (msv_cta_kernel, NT = CTA_THREADS) reads unstriped int16 words [P,
-// Kp, Mk] and keeps its row in a global scratch buffer of two rows a CTA.
+// MSV (msv_cta_kernel, msv.cu) runs 256 threads a pair over 16-bit cells
+// and a thread-major table of its own, the row in registers or shared
+// memory, never in device memory.
 //
 // Forward and Viterbi (fwd_cta_kernel, vit_cta_kernel) read the pair's
 // whole model every row, 40 bytes a slot (8 odds or log transitions and
@@ -267,6 +268,20 @@ __device__ __forceinline__ float cta_pre_last(const float4* TR, int n,
   return lane == 0 && wid > 0 ? sPre[wid - 1] : R::ONE;
 }
 
+// The grid of a kernel of nt threads a CTA and smem bytes of dynamic
+// shared memory that walks over npairs pairs: as many CTAs as the card
+// holds at once (the kernel's own occupancy), no more than the pairs.
+template <class K>
+static inline int resident_grid(K kernel, int nt, int smem, int npairs) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt, smem);
+  int grid = per_sm * sms;
+  if (grid > npairs) grid = npairs;
+  return grid < 1 ? 1 : grid;
+}
+
 // Launch a wide-route Forward or Viterbi kernel: smem bytes of dynamic
 // shared memory (its row there), or scratch (a [nctas][3][Mk] row a CTA),
 // on a grid of at most nctas CTAs, as many as the card holds at once.
@@ -279,15 +294,8 @@ static inline int cta_launch(K kernel, int nt, const CtaArgs& a,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                nt, smem);
-  int grid = per_sm * sms;
+  int grid = resident_grid(kernel, nt, smem, a.npairs);
   if (grid > nctas) grid = nctas;
-  if (grid > a.npairs) grid = a.npairs;
-  if (grid < 1) grid = 1;
   kernel<<<grid, nt, smem, stream>>>(a, scratch);
   return (int)cudaGetLastError();
 }

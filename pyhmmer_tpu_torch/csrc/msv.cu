@@ -37,14 +37,42 @@
 //   scalar recurrence), with the float operations of the fused scan in the
 //   same order.
 //
-// * msv_cta_kernel, the wide route (models over 4,096 slots, common.cuh):
-//   one CTA a pair, in int32 (no 16-bit packing, so dx is exact on every
-//   pair, flagged or not).  Each thread runs its slots in order, the
-//   slot below its first taken from the previous row's value of the
-//   thread below (read from the scratch row after the barrier), then the
-//   row maximum is a block reduction: one barrier a row, the warps'
-//   maxima double-buffered by row parity.  Every thread updates xJ and xB
-//   itself from the same maximum.
+// * msv_cta_kernel<R, STAGED>, the wide route (models over 4,096 slots,
+//   common.cuh): one CTA of MSV_CTA_THREADS = 256 threads a pair, thread
+//   t owning the run of SPT = Mk / 256 slots from t * SPT as R = SPT / 2
+//   words of two 16-bit cells paired as msv_kernel pairs them (word r:
+//   slots r and r + R), each updated by the same two DPX instructions
+//   (int32 cells would take twice the instructions the bound counts):
+//   - the table is thread-major (ops/batch.py:msv_thread_major: word r
+//     of thread t at position t of a row of 256 words), so a warp's load
+//     of one word is 128 contiguous bytes, not 32 sectors for 64 useful
+//     bytes;
+//   - the row never touches device memory: the words sit in registers
+//     for R in PYHMMER_MSV_CTA_REGS (Mk 4,608-12,288), else in shared
+//     memory, updated in place (a word's old value is read before the
+//     new one is written; 2 bytes a slot, 196 KB at Mk 100,352), and a
+//     thread needs only the previous row's last word of the thread below:
+//     one __shfl_up_sync inside a warp, across warps lane 31's copy in
+//     shared memory, written before the row's one barrier;
+//   - a thread's maximum is a tree of __vimax3_s16x2_relu, a warp votes
+//     (__any_sync) whether a lane's exceeds xJ + tec and only then
+//     reduces and publishes its maximum (REDUX), and the row's one
+//     barrier, __syncthreads_or, tells every thread whether any warp
+//     voted, so most rows need no block reduction; the edges and maxima
+//     alternate by row parity;
+//   - the next row's code and table words are fetched during the current
+//     row, off its dependency chain: into registers on the register tier
+//     (two rows an iteration, so the two sets swap roles; a third set,
+//     two rows ahead, cost occupancy and gained nothing, PERF.md), with
+//     cp.async into two staged rows after the cells on the shared tier
+//     where the three fit (STAGED, Mk up to 38,400; past that the words
+//     are loaded inside the row, which waits on L2: 2.7 against 1.4 ms
+//     at Mk 35,328 x 8 pairs, PERF.md); and the grid is the kernel's own
+//     occupancy (resident_grid), several CTAs a SM, so one CTA's barrier
+//     hides behind another's work.
+//   Stopping a pair once ovf fires (xJ only grows from there) was
+//   measured and dropped: it made the launches slower, not faster
+//   (PERF.md).
 //
 // The engine launches the long buckets' scans (a few warps each, latency
 // bound) on side streams, so they overlap the short buckets.
@@ -59,14 +87,21 @@
 // 16-bit cells may wrap and dx may differ from the int32 plain version.
 // xBv and xJ + tec are clamped to 32,767 before they are packed.
 //
-// Bound on this card: integer issue -- HMMER's 4 operations per cell on
-// 16-bit pairs, about 1.75 instructions per pair of cells here, plus the
-// per-row work (P * B * L * Mk cells); bytes are few.  The TPU kernels
-// cover the stripe edge with a roll and padding rows; here it is one
+// Bound on this card: integer issue -- HMMER's 4 operations a cell take
+// 2.5 DPX instructions a word of two cells (a max with xB, an add-max
+// with the cost, half a three-way max of the row maximum;
+// chip_smoke.py:MSV_INSNS), plus the per-row work (P * B * L * Mk
+// cells); bytes are few.  The wide route
+// also reads its table from L1 or L2 every row, 2 bytes a slot (the
+// table, Kp x Mk x 2 bytes, is larger than shared memory).  The TPU
+// kernels cover the stripe edge with a roll and padding rows; here it is one
 // __shfl_up_sync and one __byte_perm per row.  cuobjdump -sass of the
 // sm_90a build shows the intrinsics as DPX instructions, not emulated:
 // VIADDMNMX.S16x2, VIMNMX.S16x2.RELU and VIMNMX3.S16x2.RELU in every
-// msv_kernel<S>, beside REDUX.MAX.S32, VOTE.ANY and PRMT.
+// msv_kernel<S> (chip_smoke.py counts them in msv_cta_kernel<R> too),
+// beside REDUX.MAX.S32, VOTE.ANY and PRMT.
+
+#include <cuda_pipeline.h>
 
 #include <algorithm>
 
@@ -75,6 +110,17 @@
 // dynamic shared memory a block may use on sm_90
 constexpr int MSV_SMEM_MAX = 232448;
 constexpr int BIAS_THREADS = 64;
+// The wide route (ops/batch.py:MSV_CTA_THREADS and MSV_CTA_REGS must
+// match): threads a pair, and the words a thread (two slots each)
+// compiled with the row in registers, models of 4,608 to 12,288 slots;
+// wider ones keep it in shared memory, 2 bytes a slot (200,704 bytes at
+// the widest model the port accepts, Mk 100,352), beside the static
+// sLast and sMax.
+constexpr int MSV_CTA_THREADS = 256;
+constexpr int MSV_CTA_SMEM_STATIC = 2 * 2 * (MSV_CTA_THREADS / 32) * 4;
+#define PYHMMER_MSV_CTA_REGS(X)                                           \
+  X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16) X(17) X(18) X(19) X(20) \
+      X(21) X(22) X(23) X(24)
 
 // Lanes per (profile, target) pair: 32 / groups_for(S).  A model of up to
 // 256 slots shares a warp between two targets, 16 lanes each, so the
@@ -309,58 +355,191 @@ bias_kernel(const uint8_t* __restrict__ codes, int Lmax,
   biaslog[(size_t)p * B + b] = lsc + logf(a0 + a1);
 }
 
+// The wide route's cells of one thread: R words in registers, or (R = 0)
+// word q at col[q * MSV_CTA_THREADS] of the CTA's row in shared memory.
+template <int R>
+struct MsvCells {
+  uint32_t c[R];
+  __device__ __forceinline__ explicit MsvCells(uint32_t*) {}
+  __device__ __forceinline__ uint32_t& at(int q) { return c[q]; }
+};
+
+template <>
+struct MsvCells<0> {
+  uint32_t* col;
+  __device__ __forceinline__ explicit MsvCells(uint32_t* p) : col(p) {}
+  __device__ __forceinline__ uint32_t& at(int q) {
+    return col[q * MSV_CTA_THREADS];
+  }
+};
+
+// One row of a thread's words (ascending q: word q takes word q-1's old
+// value, word 0 the edge), each from its table word wq(q); returns the
+// new last word, mx2 the thread's maximum of both halves.
+template <int R, class Wq>
+__device__ __forceinline__ uint32_t msv_cta_row(MsvCells<R>& m, int nr,
+                                                uint32_t edge, uint32_t xb2,
+                                                Wq wq, uint32_t& mx2) {
+  uint32_t pm = edge, last = 0u;
+  if constexpr (R > 0) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const uint32_t om = m.at(q);
+      m.at(q) = __viaddmax_s16x2(__vimax_s16x2_relu(pm, xb2), wq(q), 0u);
+      pm = om;
+    }
+    mx2 = fold_max<R>(m.c);
+    last = m.at(R - 1);
+  } else {
+    uint32_t mx = 0u;
+#pragma unroll 8
+    for (int q = 0; q < nr; ++q) {
+      const uint32_t om = m.at(q);
+      last = __viaddmax_s16x2(__vimax_s16x2_relu(pm, xb2), wq(q), 0u);
+      m.at(q) = last;
+      mx = __vimax_s16x2_relu(mx, last);
+      pm = om;
+    }
+    mx2 = mx;
+  }
+  return last;
+}
+
 // The wide route: pair w of a grid-strided loop is profile w / B, target
-// w % B; scratch holds two rows a CTA, [2][SPT][CTA_THREADS] int32.
-__global__ void __launch_bounds__(CTA_THREADS)
+// w % B; MSV_CTA_THREADS threads, thread t owning nr words (R, or nr_
+// for R = 0: the row in dynamic shared memory, [nr][MSV_CTA_THREADS],
+// and for STAGED two table rows after it, [2][nr][NT], each thread
+// copying its own words of the next row in with cp.async while it runs
+// the current one).
+template <int R, bool STAGED>
+__global__ void __launch_bounds__(MSV_CTA_THREADS)
 msv_cta_kernel(const uint8_t* __restrict__ codes, int Lmax,
                const int* __restrict__ lens,
-               const int16_t* __restrict__ w16,  // [P, Kp, Mk] bias - cost
+               const uint32_t* __restrict__ w2,  // [P, Kp, nr, NT] s16x2
                const float* __restrict__ scal,   // [P, 4] bias, tec, tbm, -
                const float* __restrict__ tjb,    // [B]
-               int B, int Kp, int Mk, int npairs, int* __restrict__ scratch,
-               float* __restrict__ dx, float* __restrict__ ovf) {
-  __shared__ int smax[2][CTA_WARPS];
+               int B, int Kp, int nr_, int npairs, float* __restrict__ dx,
+               float* __restrict__ ovf) {
+  constexpr int NT = MSV_CTA_THREADS, NW = NT / 32;
+  // lane 31's last word and a warp's row maximum when it voted, by row
+  // parity
+  __shared__ uint32_t sLast[2][NW];
+  __shared__ int sMax[2][NW];
+  extern __shared__ uint32_t srow[];
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
-  const int spt = Mk / CTA_THREADS;
-  const int s0 = t * spt;
-  int* buf = scratch + (size_t)blockIdx.x * 2 * Mk;
+  const int nr = R ? R : nr_;
+  MsvCells<R> m(srow + t);
+  uint32_t* stg = srow + (size_t)nr * NT + t;  // this thread's staged words
   for (int w = blockIdx.x; w < npairs; w += gridDim.x) {
-    __syncthreads();  // the previous pair's reads of the scratch are done
     const int p = w / B, b = w % B;
+    __syncthreads();  // the previous pair's reads of sMax are done
+    if (lane == 0) sMax[0][wid] = sMax[1][wid] = 0;
     const int bias = (int)scal[p * 4 + 0];
     const int tec = (int)scal[p * 4 + 1];
     const int tbm = (int)scal[p * 4 + 2];
     const int tj = (int)tjb[b];
     const int L = lens[b];
-    const int16_t* wp = w16 + (size_t)p * Kp * Mk + s0;
+    const uint32_t* tab = w2 + (size_t)p * Kp * nr * NT + t;
     const uint8_t* seq = codes + (size_t)b * Lmax;
-    int xJ = 0, xB = max(190 - tj, 0);
-    int carry = 0;  // the previous row's cell of slot s0 - 1
-    int par = 0;
-    for (int i = 0; i < L; ++i) {
-      const int16_t* wr = wp + (size_t)seq[i] * Mk;
-      const int* prev = buf + (par ^ 1) * Mk + t;
-      int* cur = buf + par * Mk + t;
-      const int xBv = max(xB - tbm, 0);
-      int pm = carry, mx = 0;
-      for (int j = 0; j < spt; ++j) {
-        const int om = i ? prev[j * CTA_THREADS] : 0;
-        const int v = max(max(pm, xBv) + (int)wr[j], 0);
-        cur[j * CTA_THREADS] = v;
-        mx = max(mx, v);
-        pm = om;
-      }
-      mx = __reduce_max_sync(FULL_MASK, mx);
-      if (lane == 0) smax[par][wid] = mx;
-      __syncthreads();
-      int rmax = 0;
 #pragma unroll
-      for (int v = 0; v < CTA_WARPS; ++v) rmax = max(rmax, smax[par][v]);
-      xJ = max(xJ, rmax - tec);
-      xB = max(xJ, 190) - tj;
-      // slot 0 enters from B only: 0 is below every xBv
-      carry = t ? buf[par * Mk + (spt - 1) * CTA_THREADS + t - 1] : 0;
+    for (int q = 0; q < nr; ++q) m.at(q) = 0u;
+    int xJ = 0, par = 0;
+    uint32_t xb2 = (uint32_t)min(max(max(190 - tj, 0) - tbm, 0), 32767) *
+                   0x10001u;
+    uint32_t thr2 = (uint32_t)min(tec, 32767) * 0x10001u;
+    // the previous row's last word of the thread below (slot t*SPT - 1
+    // in its high half); slot 0 enters from B only (xBv >= 0)
+    uint32_t up = 0u;
+    // this row's code and the next one's, loaded a row ahead, off the
+    // row's dependency chain
+    int xc = L > 0 ? (int)__ldg(seq) : 0;
+    int xn = L > 1 ? (int)__ldg(seq + 1) : 0;
+
+    // the row's end: a warp that has a lane over xJ + tec (xJ is
+    // monotone, so only then can the row change it) reduces and
+    // publishes its maximum; the row's one barrier tells every thread
+    // whether any did and publishes the stripe edges
+    auto end_row = [&](uint32_t last, uint32_t mx2) {
+      const bool exceeds = __vimax_s16x2_relu(mx2, thr2) != thr2;
+      if (__any_sync(FULL_MASK, exceeds)) {
+        const int lmax = max((int)(int16_t)(mx2 & 0xffffu),
+                             (int)(int16_t)(mx2 >> 16));
+        const int wmax = __reduce_max_sync(FULL_MASK, lmax);
+        if (lane == 0) sMax[par][wid] = wmax;
+      }
+      if (lane == 31) sLast[par][wid] = last;
+      const uint32_t below = __shfl_up_sync(FULL_MASK, last, 1);
+      const int fired = __syncthreads_or(exceeds);
+      up = lane ? below : (wid ? sLast[par][wid - 1] : 0u);
+      if (fired) {
+        // a warp that did not vote holds 0 or an earlier row's maximum
+        // of this pair, no more than xJ + tec
+        int g = 0;
+#pragma unroll
+        for (int v = 0; v < NW; ++v) g = max(g, sMax[par][v]);
+        xJ = max(xJ, g - tec);
+        const int xB = max(190, xJ) - tj;
+        xb2 = (uint32_t)min(max(xB - tbm, 0), 32767) * 0x10001u;
+        thr2 = (uint32_t)min(xJ + tec, 32767) * 0x10001u;
+      }
       par ^= 1;
+    };
+
+    if constexpr (R > 0) {
+      // the table words a row ahead, in registers; two rows an iteration,
+      // so the two word sets swap roles instead of being copied
+      uint32_t wa[R], wb[R];
+      auto load = [&](uint32_t (&wv)[R], int x) {
+        const uint32_t* tw = tab + (size_t)x * R * NT;
+#pragma unroll
+        for (int q = 0; q < R; ++q) wv[q] = __ldg(tw + q * NT);
+      };
+      auto row = [&](int i, uint32_t (&cur)[R], uint32_t (&nxt)[R]) {
+        const int xnn = i + 2 < L ? (int)__ldg(seq + i + 2) : 0;
+        const uint32_t edge = __byte_perm(up, m.at(R - 1), 0x5432);
+        load(nxt, xn);
+        uint32_t mx2;
+        const uint32_t last = msv_cta_row<R>(
+            m, R, edge, xb2, [&](int q) { return cur[q]; }, mx2);
+        xn = xnn;
+        end_row(last, mx2);
+      };
+      load(wa, xc);
+      for (int i = 0; i < L; i += 2) {
+        row(i, wa, wb);
+        if (i + 1 < L) row(i + 1, wb, wa);
+      }
+    } else {
+      auto stage = [&](int buf, int x) {
+        const uint32_t* tw = tab + (size_t)x * nr * NT;
+        uint32_t* dst = stg + (size_t)buf * nr * NT;
+        for (int q = 0; q < nr; ++q)
+          __pipeline_memcpy_async(dst + q * NT, tw + q * NT, 4);
+        __pipeline_commit();
+      };
+      if constexpr (STAGED) stage(0, xc);
+      for (int i = 0; i < L; ++i) {
+        const int xnn = i + 2 < L ? (int)__ldg(seq + i + 2) : 0;
+        const uint32_t edge = __byte_perm(up, m.at(nr - 1), 0x5432);
+        uint32_t mx2, last;
+        if constexpr (STAGED) {
+          __pipeline_wait_prior(0);  // this row's words have landed
+          stage((i + 1) & 1, xn);    // the next row's, during this one
+          const uint32_t* tw = stg + (size_t)(i & 1) * nr * NT;
+          last = msv_cta_row<0>(m, nr, edge, xb2,
+                                [&](int q) { return tw[q * NT]; }, mx2);
+        } else {
+          const uint32_t* tw = tab + (size_t)xc * nr * NT;
+          last = msv_cta_row<0>(m, nr, edge, xb2,
+                                [&](int q) { return __ldg(tw + q * NT); },
+                                mx2);
+        }
+        xc = xn;
+        xn = xnn;
+        end_row(last, mx2);
+      }
+      // nothing left in flight into the next pair's buffers
+      if constexpr (STAGED) __pipeline_wait_prior(0);
     }
     if (t == 0) {
       const size_t o = (size_t)p * B + b;
@@ -428,28 +607,64 @@ extern "C" int msv_launch(const void* codes, int Lmax, const void* lens,
   }
 }
 
-// The wide route: nctas CTAs (scratch holds 2 * Mk int32 for each)
+// The wide route: MSV_CTA_THREADS threads a pair, the row in
+// registers for the word counts PYHMMER_MSV_CTA_REGS, else in shared
+// memory (with the two staged table rows where the three fit); a grid of
+// as many CTAs as the card holds at once.
+template <class K>
+static int msv_cta_go(K kernel, int smem, const void* codes, int Lmax,
+                      const void* lens, const void* w16, const void* scal,
+                      const void* tjb, int B, int Kp, int nr, int npairs,
+                      void* dx, void* ovf, cudaStream_t st) {
+  if (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = resident_grid(kernel, MSV_CTA_THREADS, smem, npairs);
+  kernel<<<grid, MSV_CTA_THREADS, smem, st>>>(
+      (const uint8_t*)codes, Lmax, (const int*)lens, (const uint32_t*)w16,
+      (const float*)scal, (const float*)tjb, B, Kp, nr, npairs, (float*)dx,
+      (float*)ovf);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int msv_cta_launch(const void* codes, int Lmax, const void* lens,
                               const void* w16, const void* scal,
                               const void* odds, const void* tjb,
                               const void* p1, int B, int P, int Kp, int Mk,
                               void* dx, void* ovf, void* biaslog,
-                              void* scratch, int nctas, void* stream) {
+                              void* stream) {
+  constexpr int NT = MSV_CTA_THREADS;
   if (B <= 0 || P <= 0) return 0;
-  if (Kp > 32 || Mk <= 0 || Mk % CTA_THREADS || nctas <= 0)
+  if (Kp > 32 || Mk <= 0 || Mk % CTA_THREADS || Mk % (2 * NT))
     return (int)cudaErrorInvalidValue;
+  const long long npairs = (long long)P * B;
+  if (npairs > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int nr = Mk / (2 * NT);
+  const int row = nr * NT * (int)sizeof(uint32_t);
+  const int room = MSV_SMEM_MAX - MSV_CTA_SMEM_STATIC;
+  if (row > room) return (int)cudaErrorInvalidValue;
+
   cudaStream_t st = (cudaStream_t)stream;
   const int e = launch_bias(codes, Lmax, lens, odds, p1, B, P, Kp, biaslog,
                             st);
   if (e) return e;
-  const long long npairs = (long long)P * B;
-  if (npairs > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int grid = (int)std::min<long long>(nctas, npairs);
-  msv_cta_kernel<<<grid, CTA_THREADS, 0, st>>>(
-      (const uint8_t*)codes, Lmax, (const int*)lens, (const int16_t*)w16,
-      (const float*)scal, (const float*)tjb, B, Kp, Mk, (int)npairs,
-      (int*)scratch, (float*)dx, (float*)ovf);
-  return (int)cudaGetLastError();
+  switch (nr) {
+#define PYHMMER_CASE(r)                                                    \
+  case r:                                                                  \
+    return msv_cta_go(msv_cta_kernel<r, false>, 0, codes, Lmax, lens, w16, \
+                      scal, tjb, B, Kp, nr, (int)npairs, dx, ovf, st);
+    PYHMMER_MSV_CTA_REGS(PYHMMER_CASE)
+#undef PYHMMER_CASE
+    default:
+      if (3 * row <= room)
+        return msv_cta_go(msv_cta_kernel<0, true>, 3 * row, codes, Lmax,
+                          lens, w16, scal, tjb, B, Kp, nr, (int)npairs, dx,
+                          ovf, st);
+      return msv_cta_go(msv_cta_kernel<0, false>, row, codes, Lmax, lens,
+                        w16, scal, tjb, B, Kp, nr, (int)npairs, dx, ovf, st);
+  }
 }
 
 extern "C" const char* pyhmmer_cuda_error_string(int err) {

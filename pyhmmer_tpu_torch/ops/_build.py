@@ -55,11 +55,11 @@ SIGNATURES = {
     # npairs, Kp, S, out, stream
     "fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P],
-    # the wide route: the same, with Mk for S and a scratch buffer and
-    # its CTA count before the stream (msv: after biaslog; vit and fwd:
-    # after out, vit without a route, and the CTA's threads after Mk)
+    # the wide route: the same, with Mk for S (vit and fwd: with Mk and
+    # the CTA's threads, without a route, and with a scratch buffer and
+    # its CTA count after out)
     "msv_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _I, _P],
+                       _P, _P, _P, _P],
     "vit_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P, _P, _I, _P],
     "fwd_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -8,9 +8,11 @@ import numpy as np
 import torch
 
 from .batch import (CTA_THREADS, NEGMASS, STRIPES, cta_shape,
-                    packed_stripes, stripe_width, table_width)
+                    msv_cta_shape, packed_stripes, stripe_width,
+                    table_width)
 
-#: CTAs a SM of the wide route's grid (each walks over pairs)
+#: CTAs a SM of the wide-route Forward and Viterbi grids (each walks over
+#: pairs)
 CTAS_PER_SM = 2
 
 
@@ -32,9 +34,10 @@ def cta_grid(device, npairs: int) -> int:
 def check_tensors(want: dict, table=None) -> None:
     """Raise unless every ``name: (tensor, dtype, shape or None)`` of
     ``want`` has that dtype and shape, lies on the first tensor's device
-    and is contiguous, and ``table`` (if given) is a striped [P, Kp, S,
-    32] table of a compiled stripe width or the wide route's [P, Kp,
-    Mk]."""
+    and is contiguous, and ``table`` (if given) is an MSV table: striped
+    [P, Kp, S, 32] at a compiled stripe width, or on the wide route
+    thread-major [P, Kp, R, W, 32, 2] for the ``32 W`` threads
+    ``batch.msv_cta_shape`` gives its width ``64 W R``."""
     device = next(iter(want.values()))[0].device
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype:
@@ -48,8 +51,11 @@ def check_tensors(want: dict, table=None) -> None:
             raise ValueError(f"{name} must be contiguous")
     if table is None:
         return
-    if table.dim() == 3:
-        ok = wide_width(table.shape[2])
+    if table.dim() == 6:
+        r, nw = table.shape[2], table.shape[3]
+        Mk = 64 * nw * r
+        ok = (tuple(table.shape[4:]) == (32, 2) and wide_width(Mk)
+              and msv_cta_shape(Mk)[0] == 32 * nw)
     else:
         ok = (table.dim() == 4 and table.shape[3] == 32
               and table.shape[2] in STRIPES)

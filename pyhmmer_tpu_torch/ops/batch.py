@@ -33,20 +33,28 @@ warp lane ``l`` reads its ``S`` slots with coalesced loads:
 
 Models wider than ``32 * STRIPES[-1]`` (4,096) slots take the wide
 route (:func:`stripe_width` is 0 there): one CTA a (profile, target)
-pair, ``Mk`` padded to a multiple of ``CTA_THREADS`` (:func:`kernel_width`).
-``msv_w16`` is unstriped there, [P, Kp, Mk], read by ``CTA_THREADS``
-threads.  The Forward and Viterbi kernels run ``NT`` threads
-(:func:`cta_shape`), thread ``t`` owning the contiguous run of ``SPT =
-Mk / NT`` slots ``t * SPT .. t * SPT + SPT - 1``, and read thread-major
-tables (:func:`thread_major`): ``vit_emis`` and ``fwd_emis`` [P, Kp,
-SPT, W, 32, 2], ``vit_trans`` and ``fwd_trans`` [P, SPT, 2, W, 32, 4]
-(``W = NT / 32`` warps; element ``(j, w, l)`` holds slot ``(32 w + l) *
-SPT + j``, packed as the narrow layout packs a slot), so the CTA's read
-of one position ``j`` is one contiguous run of 8 or 16 bytes a thread.
-Six dimensions mark the layout: no narrow one has more than five.  The
-row lives in registers for the compiled shapes :data:`CTA_REGS`, else
-in shared memory up to :data:`CTA_SMEM_SLOTS` slots, else in a global
-scratch row (``NT = CTA_THREADS`` for both).
+pair, ``Mk`` padded to a multiple of ``CTA_THREADS``
+(:func:`kernel_width`).  The MSV kernel runs ``NT = MSV_CTA_THREADS``
+threads (:func:`msv_cta_shape`), thread ``t`` owning the run of ``SPT =
+Mk / NT`` slots from ``t * SPT`` as ``R = SPT / 2`` words of two 16-bit
+cells, word ``r`` holding slots ``r`` and ``r + R`` of the run:
+``msv_w16`` is [P, Kp, R, W, 32, 2] there (:func:`msv_thread_major`;
+``W = NT / 32`` warps, element ``(r, w, l, h)`` holds slot ``(32 w + l)
+* SPT + r + h * R``), so the CTA's read of one word ``r`` is one
+contiguous run of 4 bytes a thread; its row lives in registers for the
+word counts :data:`MSV_CTA_REGS`, else in shared memory.  The Forward
+and Viterbi kernels run ``NT`` threads (:func:`cta_shape`), thread ``t``
+owning the contiguous run of ``SPT = Mk / NT`` slots ``t * SPT .. t *
+SPT + SPT - 1``, and read thread-major tables (:func:`thread_major`):
+``vit_emis`` and ``fwd_emis`` [P, Kp, SPT, W, 32, 2], ``vit_trans`` and
+``fwd_trans`` [P, SPT, 2, W, 32, 4] (element ``(j, w, l)`` holds slot
+``(32 w + l) * SPT + j``, packed as the narrow layout packs a slot), so
+the CTA's read of one position ``j`` is one contiguous run of 8 or 16
+bytes a thread.  Six dimensions mark the wide layouts: no narrow one has
+more than five.  The Forward and Viterbi row lives in registers for the
+compiled shapes :data:`CTA_REGS`, else in shared memory up to
+:data:`CTA_SMEM_SLOTS` slots, else in a global scratch row (``NT =
+CTA_THREADS`` for both).
 
 ``SeqDevice`` holds one length bucket of target sequences on an explicit
 device.  The JAX package imports JAX at load, so the packing is
@@ -82,6 +90,19 @@ CTA_THREADS = 512
 #: without a spill): models of 4,097 to 5,632 slots; every multiple of
 #: ``CTA_THREADS`` up to there has one, so the ladder adds no padding
 CTA_REGS = ((256, 18), (256, 20), (256, 22))
+
+#: threads a pair of the wide-route MSV kernel
+#: (``csrc/msv.cu:MSV_CTA_THREADS``; ``tests/test_torch_wide.py`` holds
+#: this and the other constants mirrored here against the sources):
+#: every wide ``Mk``, a multiple of ``CTA_THREADS``, gives each thread an
+#: even run of slots
+MSV_CTA_THREADS = 256
+
+#: the words a thread (two slots each) for which the wide-route MSV
+#: kernel is compiled with its row in registers
+#: (``csrc/msv.cu:PYHMMER_MSV_CTA_REGS``): every model width from 4,608
+#: to 12,288 slots; wider ones keep the row in shared memory
+MSV_CTA_REGS = tuple(range(9, 25))
 
 #: the widest model whose row (three floats a slot) the wide-route
 #: Forward and Viterbi kernels keep in shared memory
@@ -201,6 +222,32 @@ def cta_shape(Mk: int):
     return CTA_THREADS, "shared" if Mk <= CTA_SMEM_SLOTS else "global"
 
 
+def msv_cta_shape(Mk: int):
+    """(threads a CTA, tier) of the wide-route MSV kernel for a model
+    ``Mk`` slots wide: its cells in ``"registers"`` or ``"shared"``
+    memory (module docstring)."""
+    nt = MSV_CTA_THREADS
+    return nt, "registers" if Mk // (2 * nt) in MSV_CTA_REGS else "shared"
+
+
+def msv_thread_major(a, nt: int):
+    """[..., Mk] -> [..., R, W, 32, 2] with element (r, w, l, h) = slot
+    (32 w + l) * SPT + r + h * R for ``nt`` = 32 W threads, SPT = Mk /
+    nt = 2 R (a numpy array or a tensor)."""
+    *lead, Mk = a.shape
+    r = Mk // (2 * nt)
+    return a.reshape(*lead, nt, 2, r).swapaxes(-1, -2).swapaxes(
+        -2, -3).reshape(*lead, r, nt // 32, 32, 2)
+
+
+def msv_thread_minor(t):
+    """The inverse of :func:`msv_thread_major`: [..., R, W, 32, 2] ->
+    [..., Mk] (``nt`` read from the shape)."""
+    *lead, r, nw, _, _ = t.shape
+    return t.reshape(*lead, r, 32 * nw, 2).swapaxes(-2, -3).swapaxes(
+        -1, -2).reshape(*lead, 64 * nw * r)
+
+
 def thread_major(a, nt: int):
     """[..., Mk] -> [..., SPT, W, 32] with element (j, w, l) = slot
     (32 w + l) * SPT + j for ``nt`` = 32 W threads, SPT = Mk / nt (a
@@ -293,8 +340,7 @@ def packed(em: np.ndarray, ei: np.ndarray, tr: np.ndarray, wide_s: int):
 def kernel_tables(f: dict) -> dict:
     """The stage kernels' tables (see the module docstring), padded to
     ``Mk = kernel_width(Mp)`` and striped (thread-major on the wide
-    route, ``msv_w16`` unstriped),
-    from the shared fields ``f``."""
+    route), from the shared fields ``f``."""
     P, Kp, Mp = f["msc"].shape
     Mk = kernel_width(Mp)
     nonres = Kp - 2                   # Easel: '*' sits just below '~'
@@ -330,8 +376,8 @@ def kernel_tables(f: dict) -> dict:
     vit_emis, vit_trans = packed(msc, isc, tr, VIT_WIDE_S)
     fwd_emis, fwd_trans = packed(_xexp(msc), _xexp(isc), _xexp(tr),
                                  FWD_WIDE_S)
-    if stripe_width(Mk):
-        w16 = striped(w16)
+    w16 = (striped(w16) if stripe_width(Mk)
+           else msv_thread_major(w16, msv_cta_shape(Mk)[0]))
     return {"msv_w16": np.ascontiguousarray(w16),
             "msv_scal": scal, "msv_odds": odds, "vit_emis": vit_emis,
             "vit_trans": vit_trans, "fwd_emis": fwd_emis,

@@ -10,9 +10,9 @@ null term), with the same meaning as the Pallas outputs.  The kernel
 keeps its cells in 16 bits: ``ovf`` is the plain version's everywhere and
 ``dx`` on every pair it does not flag (a flagged pair's ``dx`` is
 ignored by the engine; see the note in ``csrc/msv.cu``).  A model wider
-than 4,096 slots (an unstriped [P, Kp, Mk] ``w16``) takes the wide route,
-``msv_cta_kernel``, in int32: there ``dx`` is the plain version's on
-every pair.
+than 4,096 slots (a thread-major [P, Kp, R, W, 32, 2] ``w16``) takes the
+wide route, ``msv_cta_kernel``, with the same cells and the same
+contract.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, _pairs
-from .batch import ProfileBatch, SeqDevice, unstriped
+from .batch import ProfileBatch, SeqDevice, msv_thread_minor, unstriped
 
 #: kernel launches made by :func:`msv_scores` (reset by the caller), and
 #: those of them on the wide route
@@ -55,7 +55,9 @@ def _check(codes, lens, w16, scal, odds, tjb, p1):
 def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
     """``codes`` [B, Lmax] uint8; ``lens`` [B] int32; ``w16`` [P, Kp, S,
     32] int16 pre-biased quantized costs ``bias - cost``, striped (cost
-    255 in padding), or [P, Kp, Mk] on the wide route; ``scal`` [P, 4] (bias, tec, tbm, -); ``odds`` [P, Kp]
+    255 in padding), or thread-major [P, Kp, R, W, 32, 2] on the wide
+    route (``batch.msv_thread_major``); ``scal`` [P, 4] (bias, tec, tbm,
+    -); ``odds`` [P, Kp]
     bias-filter odds (0 at the nonresidue code); ``tjb``, ``p1`` [B] f32.
     Returns (dx, ovf, biaslog) [P, B]."""
     _check(codes, lens, w16, scal, odds, tjb, p1)
@@ -69,15 +71,12 @@ def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
     ovf = torch.empty_like(dx)
     biaslog = torch.empty_like(dx)
     P_ = _build.ptr
-    if w16.dim() == 3:                        # the wide route
-        Mk = w16.shape[2]
-        nctas = _pairs.cta_grid(codes.device, P * B)
-        scratch = torch.empty((nctas, 2, Mk), dtype=torch.int32,
-                              device=codes.device)
+    wide = w16.dim() == 6
+    if wide:
         err = _build.lib().msv_cta_launch(
             P_(codes), Lmax, P_(lens), P_(w16), P_(scal), P_(odds),
-            P_(tjb), P_(p1), B, P, Kp, Mk, P_(dx), P_(ovf), P_(biaslog),
-            P_(scratch), nctas, _build.stream_ptr(codes))
+            P_(tjb), P_(p1), B, P, Kp, 64 * w16.shape[2] * w16.shape[3],
+            P_(dx), P_(ovf), P_(biaslog), _build.stream_ptr(codes))
         _build.check(err, "msv_cta_launch")
     else:
         err = _build.lib().msv_launch(
@@ -85,7 +84,7 @@ def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
             P_(tjb), P_(p1), B, P, Kp, w16.shape[2], P_(dx), P_(ovf),
             P_(biaslog), _build.stream_ptr(codes))
         _build.check(err, "msv_launch")
-    _build.count_launch(globals(), wide=w16.dim() == 3)
+    _build.count_launch(globals(), wide=wide)
     return dx, ovf, biaslog
 
 
@@ -95,7 +94,8 @@ def msv_plain(codes, lens, w16, scal, odds, tjb, p1):
     exact, no 16-bit limit)."""
     dev = codes.device
     B = codes.shape[0]
-    w = (w16 if w16.dim() == 3 else unstriped(w16)).to(torch.float32)
+    w = (msv_thread_minor(w16) if w16.dim() == 6
+         else unstriped(w16)).to(torch.float32)
     P, Kp, Mk = w.shape
     bias = scal[:, 0:1]                           # [P, 1]
     tec = scal[:, 1:2]

@@ -258,9 +258,8 @@ def test_round_up(x, m, want):
 def test_stripe_width():
     """Past the widest stripe (4,096 slots) the kernels take the wide
     route: stripe width 0, the width padded to a multiple of
-    ``CTA_THREADS``, and a ``ProfileBatch`` there packs MSV's unstriped
-    table and the thread-major Forward and Viterbi tables
-    (``ops/batch.py``)."""
+    ``CTA_THREADS``, and a ``ProfileBatch`` there packs MSV's, Forward's
+    and Viterbi's thread-major tables (``ops/batch.py``)."""
     assert [TB.stripe_width(Mp) for Mp in (32, 64, 96, 384, 1024, 2048,
                                            4096)] \
         == [1, 2, 3, 12, 32, 64, 128]
@@ -274,7 +273,12 @@ def test_stripe_width():
     tpb = TB.ProfileBatch([prof], Mp=4224)
     Kp = h.alphabet.Kp
     assert (tpb.S, tpb.Mk) == (0, 4608)
-    assert tpb.msv_w16.shape == (1, Kp, 4608)
+    # 256 threads of 9 words, two 16-bit slots each
+    # (ops/batch.py:msv_cta_shape); the plain [P, Kp, Mk] costs back
+    assert tpb.msv_w16.shape == (1, Kp, 9, 8, 32, 2)
+    w = TB.msv_thread_minor(tpb.msv_w16)
+    assert w.shape == (1, Kp, 4608)
+    assert (w[0, :, 4224:] == int(tpb.msv_bias[0]) - 255).all()
     for name in ("vit", "fwd"):
         # 256 threads of 18 slots (ops/batch.py:cta_shape)
         assert getattr(tpb, name + "_emis").shape == (1, Kp, 18, 8, 32, 2)

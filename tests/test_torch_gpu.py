@@ -7,7 +7,8 @@ package's bars; the f32 summation order being the only difference);
 ``Builder.calibrate`` on the card against the CPU (MSV mu, tau and
 lambda equal, Viterbi mu within 1e-3 bits), phmmer on the card
 against the CPU (identical rows), the wide route (models over 4,096
-slots) against the plain versions, nhmmer with its gates on the card
+slots; MSV also at nhmmer's longest gate rows and the widest model)
+against the plain versions, nhmmer with its gates on the card
 against the CPU's host path (identical rows), and the distribution
 layer on one card: ``sharded_search`` in 4 shards against the
 single-shot search (identical rows), ``ShardedCascade`` on a 2 x 2 mesh
@@ -550,11 +551,14 @@ def test_phmmer_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("M", [4200, 5600, 9000, 18900])
 def test_wide_route_matches_plain(cuda, M):
-    """Models over 4,096 slots (one CTA a pair): MSV dx and ovf identical
-    on every pair (int32 cells), biaslog within 1e-4 nats, Viterbi and
-    Forward within their bars, with the row in registers (M 4,200, and
+    """Models over 4,096 slots (one CTA a pair): MSV at the narrow
+    kernel's bar (``assert_msv_matches``: the wide kernel's cells are
+    16-bit too) with some pair flagged, biaslog within 1e-4 nats,
+    Viterbi and Forward within their bars, with the Forward and Viterbi
+    row in registers (M 4,200, and
     5,600 at the top of the ladder), in shared memory (9,000) and in a
-    global scratch row (18,900)."""
+    global scratch row (18,900); MSV's row is in registers at every one
+    of these widths but the last (Mk 18,944: shared memory)."""
     h = syn.sample_models((M,), seed=M + 1)[0]
     aa = h.alphabet
     pb = TB.ProfileBatch([Profile(M, aa).configure(h, Background(aa), 400,
@@ -570,7 +574,7 @@ def test_wide_route_matches_plain(cuda, M):
     dx, ovf, bl = msv_cuda.msv_scores(*args)
     assert msv_cuda.launches == before + 1
     dx2, ovf2, bl2 = msv_cuda.msv_plain(*args)
-    assert torch.equal(dx, dx2) and torch.equal(ovf, ovf2)
+    assert_msv_matches(dx, ovf, dx2, ovf2)
     assert bool(ovf.any()) and (bl - bl2).abs().max().item() <= 1e-4
     rows = torch.arange(0, 40, 2, device=cuda)
     need = torch.ones((1, 20), dtype=torch.bool, device=cuda)
@@ -582,6 +586,65 @@ def test_wide_route_matches_plain(cuda, M):
         a = (dev.codes, dev.lens, dev.lm, emis, trans, rows, need)
         k, p = fn(*a), plain(*a)
         assert (k - p).abs().max().item() <= tol
+
+
+def wide_msv_case(name, cuda):
+    """(profile batch, bucket) on the card of the wide MSV kernel's
+    extremes: nhmmer's largest gate launch (an AT-rich DNA model of M
+    5,000, Mk 5,120, the row in registers, against 4 subwindows of
+    18,632 residues, one with a consensus copy, one with a mutated copy
+    and one with an AT-rich stretch of 300 residues, so that the bias
+    filter scores well away from 0), or the widest model the port
+    accepts (M 100,000, Mk 100,352, the row in shared memory, 200,704
+    bytes) against consensus, planted and background lanes."""
+    if name == "nhmmer-gate":
+        h = syn.sample_dna_models((5000,), seed=5001)[0]
+        at_rich = np.array([0.4, 0.1, 0.1, 0.4])
+        h.mat[1:] = 0.75 * h.mat[1:] + 0.25 * at_rich
+        rng = np.random.default_rng(5002)
+        f = np.full(4, 0.25)
+        codes = rng.choice(4, size=(4, 18632), p=f).astype(np.uint8)
+        for lane, cons in ((1, 1.0), (2, 0.85)):
+            copy = syn.plant(h, rng, cons)
+            codes[lane, 3000:3000 + len(copy)] = copy
+        codes[3, 9000:9300] = rng.choice(4, size=300, p=at_rich)
+        lengths = np.full(4, 18632)
+    else:
+        h = syn.sample_models((100_000,), seed=100_001)[0]
+        codes, lengths = syn.make_lanes([h], 12, 400, seed=100_002)
+    aa = h.alphabet
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(
+        h, Background(aa), 400, multihit=True)],
+        Mp=TB.round_up(h.M, 32)).to(cuda)
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    return pb, dev
+
+
+@pytest.mark.parametrize("name", ["nhmmer-gate", "M100000"])
+def test_wide_msv_extremes(cuda, name):
+    """The wide MSV kernel at its longest rows and its widest model:
+    ``assert_msv_matches`` with some pair flagged, biaslog within the
+    JAX package's bar for the fused bias filter, 0.25 (2e-3 + 1e-6 L)
+    nats (``tests/test_pallas_kernels.py``; f32 sums over up to 18,632
+    rows); at nhmmer's gate some lane's biaslog is over ten times that
+    bar, so a bias kernel that returned zeros would fail."""
+    pb, dev = wide_msv_case(name, cuda)
+    tier = TB.msv_cta_shape(pb.Mk)[1]
+    assert tier == {"nhmmer-gate": "registers", "M100000": "shared"}[name]
+    args = (dev.codes, dev.lens, pb.msv_w16, pb.msv_scal, pb.msv_odds,
+            dev.tjb, dev.p1)
+    before = msv_cuda.launches_wide
+    dx, ovf, bl = msv_cuda.msv_scores(*args)
+    assert msv_cuda.launches_wide == before + 1
+    dx2, ovf2, bl2 = msv_cuda.msv_plain(*args)
+    torch.cuda.synchronize()
+    assert_msv_matches(dx, ovf, dx2, ovf2)
+    assert bool(ovf.any()) and bool((ovf == 0).any())
+    bar = 0.25 * (2e-3 + 1e-6 * dev.lens.float())
+    assert bool(((bl - bl2).abs() <= bar[None, :]).all())
+    if name == "nhmmer-gate":
+        assert bool((bl2.abs() > 10 * bar[None, :]).any())
 
 
 def test_nhmmer_on_card_matches_cpu(cuda, monkeypatch):
