@@ -10,12 +10,18 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    host native library missing, a kernel that does not build (the DPX,
    permute, vote and reduce instructions of the MSV kernels, the wide
    route's ``msv_cta_kernel<R>`` among them, are counted from
-   ``cuobjdump -sass``), or a wide-route instance (``fwd_cta_kernel``,
-   ``vit_cta_kernel``, ``msv_cta_kernel``) that spills;
+   ``cuobjdump -sass``), a wide-route instance (``fwd_cta_kernel``,
+   ``vit_cta_kernel``, ``msv_cta_kernel``) that spills, or an instance
+   of Forward's block route (``fwd_block_kernel<S>``, S = 32 to 128
+   slots a lane) that is missing or spills;
 2. kernel parity: each CUDA kernel against its plain PyTorch version on
    the card, at main-path shapes (for MSV also the widest chunk x the
    longest bucket; for Forward also the launch with the most pairs of
-   one smoke search, for Viterbi that of one smoke search and of one
+   one smoke search and, on its block route (32 to 128 slots a lane),
+   every launch of the smoke search at those widths, replayed, and
+   seeded stacks at Mk 2,048 and 4,096, each record naming its route,
+   warps a pair and slots a thread; for Viterbi that of one smoke
+   search and of one
    with the cascade forced, and for the survivor rows every launch of
    the smoke search with the rows stage on and the forced cascade's
    launch with the most pairs, replayed with their own arguments and the
@@ -26,8 +32,8 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    plain/kernel/kernel/plain; the survivor-rows kernels against one timed
    plain call), beside each shape's bound (``bound``);
 3. search: ``hmmsearch(device="cuda")`` once warm, then three timed runs;
-   every kernel's launch counter must be > 0 in the last run (the rows
-   kernel's must stay 0); a fifth run through ``SearchEngine.search``
+   every kernel's launch counter must be > 0 in the last run, Forward's
+   block route's too (the rows kernel's must stay 0); a fifth run through ``SearchEngine.search``
    reads the engine's stage marks and the bytes of the kernel tables
    (the rows kernels read the Forward kernel's).  Then the same with the
    device rows
@@ -113,7 +119,10 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the kernels' JSON record (launches on the main
 path and per search path, error, times of the first parity shape, its
-bound), and the one before that the card's name and power limit.  Phases
+bound; Forward's block route has an entry of its own, ``fwd_block``,
+whose launches are among ``fwd``'s and whose first shape is the main
+path's first launch on it), and the one before that the card's name and
+power limit.  Phases
 3 and 5-14 set every kernel's launch counter to 0 just before the run
 they count and read them just after (the ranks of phase 13 count their
 own).  A plain version that takes many
@@ -246,8 +255,10 @@ KERNELS = {
     "rows": (rows_cuda, "pyhmmer_tpu_torch/csrc/rows.cu",
              "pyhmmer_tpu/ops/rows_pallas.py:473,510"),
 }
-#: the kernels each search path runs
-PATHS = {False: ("msv", "fwd", "vit"), True: ("msv", "fwd", "vit", "rows")}
+#: the kernels each search path runs (``fwd_block``: Forward's block
+#: route, the smoke stack's widest chunk)
+PATHS = {False: ("msv", "fwd", "fwd_block", "vit"),
+         True: ("msv", "fwd", "fwd_block", "vit", "rows")}
 #: routing that sends every bias survivor through the device cascade
 #: (tests/test_torch_engine.py:force_device_cascade)
 FORCED = {"SPECULATE_P1B": -1.0, "HOST_MIN_PAIRS": 0,
@@ -264,15 +275,64 @@ def reset_launches():
         mod.launches = 0
         if name in WIDE_KERNELS:
             mod.launches_wide = 0
+    fwd_cuda.launches_block = 0
 
 
 def read_launches():
-    """Each kernel's launches, and as ``<kernel>_wide`` those of them on
-    the wide route."""
+    """Each kernel's launches, as ``<kernel>_wide`` those of them on the
+    wide route, and as ``fwd_block`` Forward's on its block route (32 to
+    128 slots a lane)."""
     out = {k: mod.launches for k, (mod, _, _) in KERNELS.items()}
     out.update({f"{k}_wide": KERNELS[k][0].launches_wide
                 for k in WIDE_KERNELS})
+    out["fwd_block"] = fwd_cuda.launches_block
     return out
+
+
+def fwd_route(trans):
+    """Forward's route for the table ``trans``: on the block route its
+    warps a pair (NW, as the kernel library launches them) and slots a
+    thread (SP)."""
+    S = B.packed_stripes(trans)
+    if not S:
+        return "wide route, %d threads, row in %s" % B.cta_shape(
+            B.table_width(trans))
+    nw = _build.lib().fwd_block_warps(S)
+    if not nw:
+        return "one warp a pair"
+    return "block route, NW %d, SP %d" % (nw, S // nw)
+
+
+def is_block(call):
+    """Whether a recorded Forward launch (pb, dev, cols, need, pairs)
+    runs on the block route."""
+    return B.packed_stripes(call[0].fwd_trans) >= B.FWD_WIDE_S
+
+
+def dp_cells(M, lens, cols, need):
+    """The DP cells of a launch: the sum of M x L over the pairs of the
+    profiles' lengths ``M`` and the columns ``cols`` where ``need``."""
+    clens = lens[cols].to(torch.float64).cpu()
+    return float((torch.as_tensor(M, dtype=torch.float64)[:, None]
+                  * clens[None, :])[need.cpu()].sum())
+
+
+def cells_of(call):
+    """:func:`dp_cells` of a recorded launch (pb, dev, cols, need,
+    pairs)."""
+    pb, dev, cols, need = call[:4]
+    return dp_cells(pb.M, dev.lens, cols, need)
+
+
+def block_stack(Mk):
+    """A seeded stack of 4 models of ``Mk`` - 40 to ``Mk`` - 160 match
+    states at the padded width ``Mk`` (Forward's block route from 1,024),
+    on the card."""
+    hmms = syn.sample_models(tuple(Mk - 40 * k for k in range(1, 5)),
+                             seed=Mk)
+    bg = Background(hmms[0].alphabet)
+    return B.ProfileBatch([Profile(h.M, h.alphabet).configure(
+        h, bg, 400, multihit=True) for h in hmms], Mp=Mk).to("cuda")
 
 
 def say(phase, **kw):
@@ -403,6 +463,17 @@ def phase_environment(smi):
     if missing or msv_cta != msv_want or any(
             st or ld for _, st, ld in cta.values()):
         fail(f"wide-route instances spill or are missing: {cta}")
+    # Forward's block route: fwd_block_kernel<S>, one instance a compiled
+    # width from FWD_WIDE_S slots a lane; none may spill
+    block = {k: (v["regs"], v.get("spill_st", 0), v.get("spill_ld", 0))
+             for k, v in ptxas.items() if k.startswith("fwd_block_kernel<")}
+    say("fwd_block_spills", **block,
+        note="registers, spill store and load bytes")
+    if set(block) != {f"fwd_block_kernel<{s}>" for s in B.STRIPES
+                      if s >= B.FWD_WIDE_S} or any(
+            st or ld for _, st, ld in block.values()):
+        fail(f"Forward's block-route instances spill or are missing: "
+             f"{block}")
     say("sass", **sass_summary(_build.LIB, ("msv_kernel", "msv_cta_kernel")))
 
 
@@ -565,14 +636,13 @@ def survivor_parity(name, args, pairs, M, reps_k, reps_p, label, tpu):
         fail(f"{name}: kernel vs plain {err} > {tol} nats")
     ms, plain_ms = in_turns(lambda: fn(*args, pairs), lambda: plain(*args),
                             reps_k, reps_p, p_ms)
-    clens = lens[cols].to(torch.float64).cpu()
-    cells = float((torch.as_tensor(M, dtype=torch.float64)[:, None]
-                   * clens[None, :])[need.cpu()].sum())
+    cells = dp_cells(M, lens, cols, need)
     rec = dict(
         shape=f"{label}P{emis.shape[0]} x n{len(cols)} (need "
               f"{int(need.sum())}) x L{codes.shape[1]} x "
               f"Mk{B.table_width(trans)}",
         tpu=tpu, max_abs_err=err, ms=ms, plain_ms=plain_ms, cells=cells,
+        route=fwd_route(trans) if name == "fwd" else None,
         **bound(vit_ops_s(cells) if name == "vit"
                 else FILTER_FLOPS * cells / F32_RATE, (*args, pairs), (k,)))
     say("parity", kernel=name, **rec,
@@ -626,6 +696,25 @@ def phase_parity(queries, targets):
     cases.append((pb, dev, cols, need, pairs, 20, 1,
                   f"main-path launch (most pairs of {len(launches)}): ",
                   ("fwd",)))
+    # Forward's block route (32 to 128 slots a lane): every launch of the
+    # main path at those widths, replayed with the engine's pairs, then
+    # seeded stacks at Mk 2,048 and 4,096 against the 512 bucket (18% of
+    # every 8th lane); the widest chunk x the long bucket above is its
+    # long case
+    block = [c for c in launches if c[0].S >= B.FWD_WIDE_S]
+    if not block:
+        fail("no Forward launch of the smoke search took the block route")
+    for i, (pb, dev, cols, need, pairs) in enumerate(block):
+        cases.append((pb, dev, cols, need, pairs, 20, 1,
+                      f"main-path block-route launch {i + 1} of "
+                      f"{len(block)}: ", ("fwd",)))
+    gen_block = torch.Generator().manual_seed(3)
+    for Mk in (2048, 4096):
+        pb, dev = block_stack(Mk), devs[512]
+        cols = torch.arange(0, dev.B, 8, device="cuda")
+        need = torch.rand((pb.P, len(cols)), generator=gen_block) < 0.18
+        cases.append((pb, dev, cols, need.to("cuda"), None, 10, 1,
+                      f"seeded stack at Mk{Mk}: ", ("fwd",)))
     # Viterbi: the main path's launches, and the forced cascade's launch
     # with the most pairs (what a Pfam-scale search sends)
     for forced in (False, True):
@@ -975,8 +1064,9 @@ def phase_phmmer(smi, queries, targets, planted, models, parity):
     Forward and Viterbi launches recorded), three timed runs (the counts
     read over the last); every query finds itself first; the builds
     alone, timed; three queries' rows against the sequential oracle; the
-    warm run's Forward and Viterbi launches with the most pairs against
-    the plain versions."""
+    warm run's Forward and Viterbi launches with the most pairs, and its
+    Forward launch on the block route with the most cells, against the
+    plain versions."""
     ncmp = len(queries) * len(targets)
     t = time.time()
     _, (fwd_calls, vit_calls) = captured(
@@ -1044,6 +1134,15 @@ def phase_phmmer(smi, queries, targets, planted, models, parity):
             name, survivor_args(name, pb, dev, cols, need), pairs, pb.M, 20,
             1, f"phmmer launch (most pairs of {len(calls)}): ",
             tpu_route(name, pb, dev)))
+    # the queries of 1,024 slots and more: Forward's block route
+    block = [c for c in fwd_calls if is_block(c)]
+    if not block:
+        fail("phmmer: no Forward launch on the block route")
+    pb, dev, cols, need, pairs = max(block, key=cells_of)
+    parity["fwd"].append(survivor_parity(
+        "fwd", survivor_args("fwd", pb, dev, cols, need), pairs, pb.M, 5, 0,
+        f"phmmer's block-route launch with most cells (of {len(block)}): ",
+        tpu_route("fwd", pb, dev)))
     return launches
 
 
@@ -1256,9 +1355,10 @@ def phase_nhmmer(smi, parity):
     each model calibrated on the card, once warm (the gates' launches
     recorded), three timed runs (the counts read over the last); the
     rows equal the host path's (gates off) and every planted copy is
-    found on its strand; the gate launch with the most cells against the
-    plain versions.  Returns the launches, the calibrated models, the
-    genome and the last timed run's results."""
+    found on its strand; the gate launch with the most cells, and every
+    gate launch on Forward's block route, against the plain versions.
+    Returns the launches, the calibrated models, the genome and the last
+    timed run's results."""
     models, genome, planted = syn.nhmmer_workload()
     dna = genome.alphabet
     bld, bg = Builder(dna, device="cuda"), Background(dna)
@@ -1328,6 +1428,16 @@ def phase_nhmmer(smi, parity):
         parity[name].append(survivor_parity(
             name, survivor_args(name, pb, dev, cols, need), pairs, pb.M, 3,
             0, label, tpu))
+    # the gate launches on Forward's block route (the M 1,200 model)
+    block = [i for i, c in enumerate(calls[2]) if is_block(c)]
+    if not block:
+        fail("nhmmer: no gate launch on Forward's block route")
+    for i in block:
+        pb, dev, cols, need, pairs = calls[2][i]
+        parity["fwd"].append(survivor_parity(
+            "fwd", survivor_args("fwd", pb, dev, cols, need), pairs, pb.M,
+            3, 0, f"nhmmer's gate launch {i + 1} of {len(calls[2])}: ",
+            "_fwd_pallas2" if pb.Mp <= 768 else "batch XLA scan"))
     say("nhmmer", card=smi, models=[h.M for h in models],
         records=len(genome), residues=residues, calibrate_s=cal,
         warm_s=warm_s, wall_s=walls,
@@ -1684,6 +1794,22 @@ def main():
                        "bound_by": main_case["bound_by"],
                        # no single PyTorch call computes these DP scans
                        "library_ms": None})
+    # Forward's block route apart (its launches are among "fwd"'s): the
+    # main path's first block-route launch, replayed, is its main case
+    blocks = [r for r in parity["fwd"]
+              if (r["route"] or "").startswith("block")]
+    main_case = next(r for r in blocks
+                     if r["shape"].startswith("main-path block-route"))
+    record.append({"name": "fwd_block", "route": "cuda",
+                   "source": KERNELS["fwd"][1],
+                   "replaces": KERNELS["fwd"][2],
+                   "launches": launches["fwd_block"],
+                   "launches_by_path": {path: n.get("fwd_block")
+                                        for path, n in by_path.items()},
+                   "max_abs_err": max(r["max_abs_err"] for r in blocks),
+                   "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                   "bound_ms": main_case["bound_ms"],
+                   "bound_by": main_case["bound_by"], "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

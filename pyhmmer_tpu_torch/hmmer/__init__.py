@@ -66,7 +66,8 @@ def _query_list(queries):
 
 
 def hmmsearch(queries, sequences, *, cpus: int = 0, device="cuda",
-              callback=None, block_residues: Optional[int] = None, device_rows: bool = False,
+              callback=None, backend: str = "cuda",
+              block_residues: Optional[int] = None, device_rows: bool = False,
               **options) -> Iterator[TopHits]:
     """Search HMM profile(s) against a sequence database; yields one
     :class:`TopHits` per query, in query order.
@@ -79,17 +80,28 @@ def hmmsearch(queries, sequences, *, cpus: int = 0, device="cuda",
     ``sequences`` is a digital :class:`SequenceFile`, the database is
     consumed in blocks of ``block_residues`` residues (default 16M) and
     the per-block results are merged, as in
-    ``pyhmmer_tpu.hmmer.hmmsearch``."""
+    ``pyhmmer_tpu.hmmer.hmmsearch``.  ``backend="oracle"`` searches each
+    query with the sequential ``Pipeline.search_hmm`` instead (a
+    :class:`SequenceFile` is then read whole), as the JAX package's
+    ``hmmsearch`` does."""
     dev = resolve_device(device)
     queries = _query_list(queries)
     if not queries:
         return iter(())
     alphabet = queries[0].alphabet
-    if isinstance(sequences, SequenceFile):
+    if isinstance(sequences, SequenceFile) and backend != "oracle":
         return _hmmsearch_streamed(queries, sequences, alphabet, dev,
                                    callback, block_residues or (1 << 24),
                                    dict(options, device_rows=device_rows))
     block = _target_block(sequences)
+    if backend == "oracle":
+        def gen():
+            for q in queries:
+                th = Pipeline(alphabet, **options).search_hmm(q, block)
+                if callback is not None:
+                    callback(q, len(queries))
+                yield th
+        return gen()
     eng = SearchEngine(alphabet, device=dev, device_rows=device_rows,
                        **options)
     return iter(eng.search(queries, block, callback=callback))

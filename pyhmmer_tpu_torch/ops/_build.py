@@ -41,7 +41,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C entry points and their argument types (all return an int error code)
+#: C entry points and their argument types (all return an int: an error
+#: code, or for ``fwd_block_warps`` a count)
 SIGNATURES = {
     # codes, Lmax, lens, w16, scal, odds, tjb, p1, B, P, Kp, S,
     # dx, ovf, biaslog, stream
@@ -64,6 +65,9 @@ SIGNATURES = {
                        _I, _P, _P, _I, _P],
     "fwd_cta_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P, _P, _I, _P],
+    # S: the warps a pair of Forward's block route at S slots a lane (0:
+    # none there)
+    "fwd_block_warps": [_I],
     # codes, Lmax, lens, lm, emis, trans, pair_p, pair_row, npairs, Kp,
     # S, route, frows, fsc, terms, bsc, stream
     "rows_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -75,16 +79,17 @@ _lib: Optional[ctypes.CDLL] = None
 _count_lock = threading.Lock()
 
 
-def count_launch(namespace: dict, wide: bool = False) -> None:
+def count_launch(namespace: dict, route: Optional[str] = None) -> None:
     """Add one to ``launches`` in a wrapper module's ``namespace`` and,
-    for a launch of the wide route (models over 4,096 slots), to
-    ``launches_wide``, under a lock: the shard engines of
-    ``parallel.mesh.sharded_search`` launch from threads of their own,
-    and ``launches += 1`` is no atomic update."""
+    for a launch of a route counted apart (``"wide"``: the wide route,
+    models over 4,096 slots; ``"block"``: Forward's block route, 32 to
+    128 slots a lane), to ``launches_<route>``, under a lock: the shard
+    engines of ``parallel.mesh.sharded_search`` launch from threads of
+    their own, and ``launches += 1`` is no atomic update."""
     with _count_lock:
         namespace["launches"] += 1
-        if wide:
-            namespace["launches_wide"] += 1
+        if route:
+            namespace["launches_" + route] += 1
 
 
 def _nvcc() -> str:

@@ -19,8 +19,10 @@ from .batch import (FWD_WIDE_S, NEGMASS, ProfileBatch, SeqDevice,
                     cta_shape, packed_stripes, table_width, unpacked)
 
 #: kernel launches made by :func:`fwd_scores` (reset by the caller), and
-#: those of them on the wide route
+#: those of them on the block route (32 to 128 slots a lane) and on the
+#: wide route (models over 4,096 slots)
 launches = 0
+launches_block = 0
 launches_wide = 0
 
 TINY = 1e-30
@@ -70,14 +72,14 @@ def fwd_scores(codes, lens, lm, emis, trans, rows, need, pairs=None):
             Mk, nt, P_(out), None if scratch is None else P_(scratch),
             nctas, _build.stream_ptr(codes))
         _build.check(err, "fwd_cta_launch")
-        _build.count_launch(globals(), wide=True)
+        _build.count_launch(globals(), "wide")
         return out
     err = _build.lib().fwd_launch(
         P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),
         P_(pair_p), P_(pair_row), P_(pair_out), npairs, Kp, S, P_(out),
         _build.stream_ptr(codes))
     _build.check(err, "fwd_launch")
-    _build.count_launch(globals())
+    _build.count_launch(globals(), "block" if S >= FWD_WIDE_S else None)
     return out
 
 
@@ -106,7 +108,7 @@ def fwd_plain(codes, lens, lm, emis, trans, rows, need):
     xB = move.expand(P, n).clone()
     xJ = torch.zeros((P, n), dtype=torch.float32, device=dev)
     xC = xJ.clone()
-    lsc = xJ.clone()
+    lsc = torch.zeros((P, n), dtype=torch.float64, device=dev)
 
     def shift(a):
         return torch.cat([zcol, a[..., :-1]], dim=-1)
@@ -137,12 +139,14 @@ def fwd_plain(codes, lens, lm, emis, trans, rows, need):
         m = torch.where(v3, nm * inv3, m)
         iv = torch.where(v3, ni * inv3, iv)
         d = torch.where(v3, nd * inv3, d)
-        lsc = torch.where(valid, lsc + torch.log(mx), lsc)
+        # the log of the factor applied, summed in double (csrc/fwd.cu)
+        lsc = torch.where(valid, lsc - torch.log(inv).double(), lsc)
         xJ = torch.where(valid, nj * inv, xJ)
         xC = torch.where(valid, nc * inv, xC)
         xN = torch.where(valid, nn * inv, xN)
         xB = torch.where(valid, nb * inv, xB)
     score = torch.where(xC > 0.0,
-                        torch.log(xC.clamp(min=TINY)) + lsc + log_move,
+                        (lsc + torch.log(xC.clamp(min=TINY))
+                         + log_move.double()).float(),
                         torch.full_like(xC, NEGMASS))
     return torch.where(need, score, out)

@@ -84,7 +84,7 @@ def msv_scores(codes, lens, w16, scal, odds, tjb, p1):
             P_(tjb), P_(p1), B, P, Kp, w16.shape[2], P_(dx), P_(ovf),
             P_(biaslog), _build.stream_ptr(codes))
         _build.check(err, "msv_launch")
-    _build.count_launch(globals(), wide=wide)
+    _build.count_launch(globals(), "wide" if wide else None)
     return dx, ovf, biaslog
 
 

@@ -87,7 +87,7 @@ def _scores(codes, lens, lm, emis, trans, rows, need, pairs, route: str):
             Mk, nt, P_(out), None if scratch is None else P_(scratch),
             nctas, _build.stream_ptr(codes))
         _build.check(err, "vit_cta_launch")
-        _build.count_launch(globals(), wide=True)
+        _build.count_launch(globals(), "wide")
         return out
     err = _build.lib().vit_launch(
         P_(codes), codes.shape[1], P_(lens), P_(lm), P_(emis), P_(trans),

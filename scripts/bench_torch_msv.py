@@ -27,11 +27,15 @@ path really makes -- ``chip_smoke.main_path_launches`` (this tree's
 was called with -- then at the
 Forward parity shapes of ``chip_smoke.py`` (the same chunks, buckets and
 seeded need masks, and the widest chunk against every lane of the
-longest bucket).  Per launch it reports the pairs, P, Mk, Lmax, the DP
-cells (the sum of M x L over the pairs), the time of the call and the
-bound (``chip_smoke.bound``'s rule, with this tree's operation counts),
-the device time of the Forward kernels alone (kernel-only) and of every
-kernel of the call (``torch.profiler`` over five more calls), and the
+longest bucket), then at the launches of 32 to 128 slots a lane
+(:func:`fwd_block_shapes`: 3,396 pairs at Mk 1,024, seeded stacks at Mk
+2,048, 3,072 and 4,096, nhmmer's M 1,200 gate launches), where each
+Mk 1,024 launch is also timed on the wide route's ``fwd_cta_kernel``
+(:func:`cta_control_ms`).  Per launch it reports the pairs, P, Mk,
+Lmax, the DP cells (the sum of M x L over the pairs), the time of the
+call and the bound (``chip_smoke.bound``'s rule, with this tree's
+operation counts), the device time of the Forward kernels alone
+(kernel-only) and of every kernel of the call (``torch.profiler`` over five more calls), and the
 scores (so runs of two checkouts can be compared); then the wall time
 and ``s2_fetched`` stage mark of three more smoke searches.  Before all
 that, each run takes the peak device memory of three
@@ -99,7 +103,8 @@ def cuda_ms(fn, reps):
 #: (in the profiler's keys), and whether the forced cascade's launches
 #: are captured too
 FILTERS = {
-    "fwd": ("fwd_cuda", "forward", ("fwd_kernel<", "fwd_wide_kernel<"),
+    "fwd": ("fwd_cuda", "forward", ("fwd_kernel<", "fwd_wide_kernel<",
+                                    "fwd_block_kernel<"),
             False),
     "vit": ("vit_cuda", "viterbi", ("vit_kernel<",),
             True),
@@ -223,6 +228,8 @@ def worker_filter(root, kernel):
             need = torch.rand((pb.P, len(cols)), generator=gen) < share
             captured.append((f"width{share}", (pb, dev, cols,
                                                need.to("cuda"))))
+    if kernel == "fwd":
+        captured += fwd_block_shapes(C, mod, pbs[huge], devs)
 
     # the kernel's code paths, where the checkout's wrapper has them
     routes = (list(mod.ROUTES)[1:] if hasattr(mod, "_scores") else [])
@@ -249,6 +256,8 @@ def worker_filter(root, kernel):
                 route_ms[route + "_max_abs_diff"] = err
             except RuntimeError:
                 pass                     # not compiled at this width
+        if kernel == "fwd" and pb.S and 32 * pb.S == 1024:
+            route_ms["cta_control"] = cta_control_ms(pb, dev, rows, need)
         lens = torch.as_tensor(dev.lengths, dtype=torch.float64)[rows.cpu()]
         M = torch.as_tensor(pb.M, dtype=torch.float64)
         cells = float((M[:, None] * lens[None, :])[need.cpu()].sum())
@@ -277,6 +286,82 @@ def worker_filter(root, kernel):
         out[f"{kind}_kernel_ms_total"] = float(np.sum(
             [r["kernel_ms"] for r in out["launches"] if r["kind"] == kind]))
     print(json.dumps(out), flush=True)
+
+
+def fwd_block_shapes(C, mod, pb1024, devs):
+    """The Forward launches of 32 to 128 slots a lane beside the main
+    path's: the Mk 1,024 chunk against every 4th lane of the 512 bucket,
+    all needed (3,396 pairs, more than the card holds at once); seeded
+    stacks of 4 models (``chip_smoke.block_stack``) at Mk 2,048, 3,072
+    and 4,096 against the 512 bucket (18% of every 8th lane, about 300
+    pairs) and against the longest bucket (its 2 lanes, 8 pairs);
+    nhmmer's gate launches of its M 1,200 model (calibrated on the card
+    first)."""
+    import torch
+
+    from pyhmmer_tpu_torch import _synthetic as syn
+    from pyhmmer_tpu_torch import nhmmer
+    from pyhmmer_tpu_torch.plan7 import Background, Builder
+
+    out = []
+    dev = devs[512]
+    cols = torch.arange(0, dev.B, 4, device="cuda")
+    out.append(("many", (pb1024, dev, cols,
+                         torch.ones((pb1024.P, len(cols)), dtype=torch.bool,
+                                    device="cuda"))))
+    gen = torch.Generator().manual_seed(2)
+    longest = devs[max(devs)]
+    for Mk in (2048, 3072, 4096):
+        pb = C.block_stack(Mk)
+        cols = torch.arange(0, dev.B, 8, device="cuda")
+        need = torch.rand((pb.P, len(cols)), generator=gen) < 0.18
+        out.append((f"mk{Mk}", (pb, dev, cols, need.to("cuda"))))
+        out.append((f"mk{Mk}_long", (
+            pb, longest, torch.arange(longest.B, device="cuda"),
+            torch.ones((pb.P, longest.B), dtype=torch.bool,
+                       device="cuda"))))
+    models, genome, _ = syn.nhmmer_workload()
+    h = next(m for m in models if m.M == 1200)
+    Builder(genome.alphabet, device="cuda").calibrate(
+        h, Background(genome.alphabet))
+    _, calls = C.captured([(mod, "forward")],
+                          lambda: list(nhmmer([h], genome, device="cuda")))
+    out += [("nhmmer1200", c) for c in calls[0]]
+    return out
+
+
+def cta_control_ms(pb, dev, rows, need):
+    """Kernel-only ms of the wide route's ``fwd_cta_kernel`` (512
+    threads, the row in shared memory) on the same pairs of a Mk 1,024
+    launch, its tables made thread-major here: the control the block
+    route is held against.  None where the checkout has no wide route."""
+    import numpy as np
+    import torch
+
+    from pyhmmer_tpu_torch.ops import _build, _pairs
+    from pyhmmer_tpu_torch.ops import batch as B
+    if not hasattr(_build.lib(), "fwd_cta_launch"):
+        return None
+    em, ei, tr = (t.cpu().numpy() for t in B.unpacked(pb.fwd_emis,
+                                                       pb.fwd_trans))
+    P, Mk, nt = em.shape[0], em.shape[2], B.CTA_THREADS
+    emis = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [B.thread_major(em, nt), B.thread_major(ei, nt)], -1))).cuda()
+    trans = torch.from_numpy(np.ascontiguousarray(B.thread_major(
+        tr.reshape(P, 2, 4, Mk), nt).transpose(0, 3, 1, 4, 5, 2))).cuda()
+    pair_p, pair_row, pair_out, out = _pairs.pairs(rows, need)
+    npairs = int(pair_p.shape[0])
+    nctas = _pairs.cta_grid(dev.codes.device, npairs)
+    P_ = _build.ptr
+
+    def call():
+        err = _build.lib().fwd_cta_launch(
+            P_(dev.codes), dev.codes.shape[1], P_(dev.lens), P_(dev.lm),
+            P_(emis), P_(trans), P_(pair_p), P_(pair_row), P_(pair_out),
+            npairs, emis.shape[1], Mk, nt, P_(out), None, nctas,
+            _build.stream_ptr(dev.codes))
+        _build.check(err, "fwd_cta_launch")
+    return kernel_ms(call, ("fwd_cta_kernel<",))[0]
 
 
 def worker_rows(root):

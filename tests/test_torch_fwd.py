@@ -2,8 +2,9 @@
 (``pyhmmer_tpu_torch.ops.fwd_cuda``), against the JAX package's XLA scan
 ``ops.batch._forward_kernel`` and the float64 oracle ``ops.reference``,
 within 0.05 nats, on padded widths on both sides of 384 and 768 (the
-JAX engine's Forward routes) and with a ``need`` mask holding dead
-pairs; on the two narrower stacks also against the v1 Pallas Forward
+JAX engine's Forward routes) and at 48 and 128 slots a lane (the CUDA
+kernel's block route; fewer, shorter lanes), with a ``need`` mask
+holding dead pairs; on the two narrower stacks also against the v1 Pallas Forward
 (``fwd_pallas._fwd_pallas``, in interpret mode).  The same bars hold on
 narrow widths (2 to 16 slots a lane, on both sides of the kernel's
 register thresholds) against lanes of 20 to 500 residues.  On the CPU
@@ -40,8 +41,11 @@ from test_torch_host import jax_hmm  # noqa: E402
 torch.set_num_threads(1)
 
 STACKS = [((60, 200, 330), 352), ((400,), 416), ((700,), 736),
-          ((790,), 800)]
+          ((790,), 800), ((1400,), 1536), ((4000,), 4096)]
 N, LMAX, BAR = 36, 160, 0.05
+#: the block route's widths (48 and 128 slots a lane) take fewer, shorter
+#: lanes: (lanes, Lmax)
+LANES = {1536: (30, 80), 4096: (30, 80)}
 #: narrow widths: 2, 3, 4, 6, 8 and 16 slots a lane (the kernel keeps
 #: the transitions in registers up to 8, prefetches emissions up to 16)
 NARROW = [((40, 60), 64), ((70, 90), 96), ((100, 120), 128),
@@ -65,13 +69,14 @@ def case(request):
     bg = Background(aa)
     profs = [Profile(h.M, aa).configure(h, bg, 400, multihit=True)
              for h in hmms]
-    codes, lengths = syn.make_lanes(models, N, LMAX, seed=Mp + 2)
+    n, Lmax = LANES.get(Mp, (N, LMAX))
+    codes, lengths = syn.make_lanes(models, n, Lmax, seed=Mp + 2)
     jpb = JB.ProfileBatch(profs, Mp=Mp)
     jax_all = JB.forward_scores(jpb, codes, lengths)          # [P, N]
     tpb = TB.ProfileBatch(port_profiles(models), Mp=Mp)
     dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code)
     rng = np.random.default_rng(Mp)
-    rows = rng.permutation(N)[: N - 6]
+    rows = rng.permutation(n)[: n - 6]
     need = rng.random((len(Ms), len(rows))) < 0.7
     need[:, 0] = False                     # a column nobody needs
     out = fwd_cuda.forward(tpb, dev, torch.from_numpy(rows),
@@ -247,6 +252,32 @@ def test_wide_tables_are_striped(case):
     assert torch.equal(tpb.fwd_emis[:, :, 0], em)
     assert torch.equal(tpb.fwd_emis[:, :, 1], ei)
     assert torch.equal(tpb.fwd_trans, tr)
+
+
+def test_long_lane_matches_float64_oracle():
+    """One lane of 35,000 residues (background, a planted domain every
+    9,000) against a model of 1,000 match states at Mk 1,024 (the block
+    route's width): the logs of the per-row scale factors, summed over
+    35,000 rows, stay within 5e-3 nats of the f64 oracle (an f32 sum of
+    them drifted 0.22 nats here)."""
+    L, Mp = 35000, 1024
+    models = syn.sample_models((1000,), seed=Mp + 7)
+    aa = models[0].alphabet
+    f = np.asarray(TBackground(aa).residue_frequencies, np.float64)
+    rng = np.random.default_rng(Mp + 9)
+    codes = rng.choice(len(f), size=(1, L), p=f / f.sum()).astype(np.uint8)
+    for k in range(0, L - 2000, 9000):
+        dom = syn.plant(models[0], rng, 0.5)
+        codes[0, k + 500: k + 500 + len(dom)] = dom
+    tpb = TB.ProfileBatch(port_profiles(models), Mp=Mp)
+    assert tpb.S >= TB.FWD_WIDE_S
+    dev = TB.SeqDevice(codes, np.array([L]), nonres_code=aa.nonresidue_code)
+    out = fwd_cuda.forward(tpb, dev, torch.arange(1),
+                           torch.ones((1, 1), dtype=torch.bool))
+    h = jax_hmm(models[0])
+    prof = Profile(h.M, h.alphabet).configure(h, Background(h.alphabet), L)
+    want = ref.forward(prof, codes[0]).score
+    assert abs(float(out[0, 0]) - want) < 5e-3, (float(out[0, 0]), want)
 
 
 def test_pairs_keep_their_places():

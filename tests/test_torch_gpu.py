@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card (MSV: ovf identical, dx exact on every pair the kernel does not
 flag, biaslog within 1e-4 nats; Viterbi <= 1e-3 nats on every route of
-its kernel; Forward <= 5e-3 nats; the survivor
+its kernel; Forward <= 5e-3 nats on every route of its kernel; the survivor
 rows' scores within 2e-3 nats and their decoded rows within the JAX
 package's bars; the f32 summation order being the only difference);
 ``Builder.calibrate`` on the card against the CPU (MSV mu, tau and
@@ -34,7 +34,7 @@ from pyhmmer_tpu_torch.plan7 import Background, Profile
 pytestmark = pytest.mark.gpu
 
 STACKS = [((40, 100, 170), 192), ((800,), 832), ((1500,), 1536),
-          ((2500,), 2560)]
+          ((2500,), 2560), ((4000,), 4096)]
 VIT_TOL, FWD_TOL = 1e-3, 5e-3
 #: rows widths 192 and 768 (the edge of the rows stage's eligibility)
 ROWS_STACKS = [((40, 100, 170), 192), ((700,), 704)]
@@ -237,6 +237,111 @@ def test_fwd_long_narrow_lanes(cuda):
     assert torch.equal(k > -1e29, p > -1e29)
     live = p > -1e29
     assert (k - p)[live].abs().max().item() <= FWD_TOL
+
+
+def assert_fwd_matches_plain(pb, dev, rows, need):
+    """``fwd_scores`` against ``fwd_plain`` within ``FWD_TOL``; pairs
+    outside ``need`` keep NEGMASS; the block route's launches are counted
+    apart."""
+    args = (dev.codes, dev.lens, dev.lm, pb.fwd_emis, pb.fwd_trans, rows,
+            need)
+    p = fwd_cuda.fwd_plain(*args)
+    live = need & (p > -1e29)
+    assert bool(live.any())
+    before = (fwd_cuda.launches, fwd_cuda.launches_block)
+    k = fwd_cuda.fwd_scores(*args)
+    block = int(pb.S >= TB.FWD_WIDE_S)
+    assert (fwd_cuda.launches, fwd_cuda.launches_block) == (
+        before[0] + 1, before[1] + block)
+    torch.cuda.synchronize()
+    assert (k[~need] == TB.NEGMASS).all()
+    assert torch.equal(k > -1e29, live)
+    assert (k - p)[live].abs().max().item() <= FWD_TOL
+
+
+def long_bucket(Ms, Mp, seed):
+    """(profile batch, bucket) of a bucket of the 131072 ladder level, as
+    the engine packs it: 14 short lanes, then lanes of 9,000 and 35,000
+    background residues, the long one with a planted domain of each of
+    the ``Ms`` models every 9,000 residues."""
+    hmms = syn.sample_models(Ms, seed=seed)
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                     multihit=True)
+                          for h in hmms], Mp=Mp).to("cuda")
+    short, slens = syn.make_lanes(hmms, 14, 320, seed=seed + 2)
+    codes = np.full((16, 131072), aa.nonresidue_code, np.uint8)
+    codes[:14, :320] = short
+    rng = np.random.default_rng(seed + 4)
+    f = np.asarray(bg.residue_frequencies, np.float64)
+    codes[14:, :35000] = rng.choice(len(f), size=(2, 35000), p=f / f.sum())
+    for k, h in enumerate(hmms):
+        dom = syn.plant(h, rng, 0.5)
+        codes[15, 9000 * k + 500: 9000 * k + 500 + len(dom)] = dom
+    codes[14, 9000:] = aa.nonresidue_code
+    lengths = np.concatenate([slens, [9000, 35000]])
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device="cuda")
+    return pb, dev
+
+
+@pytest.mark.parametrize("Ms,Mp", [((40, 100, 170), 192), ((1000,), 1024)],
+                         ids=["Mk192", "Mk1024"])
+def test_fwd_long_bucket(cuda, Ms, Mp):
+    """The Forward counterpart of :func:`test_vit_long_bucket`: lanes of
+    9,000 and 35,000 residues, the long one with planted domains, beside
+    short lanes, on the route of each width (at Mk1024 the block route,
+    4 warps a pair): the row-invariant terms and the reciprocal do not
+    drift from the plain version over 35,000 rows."""
+    pb, dev = long_bucket(Ms, Mp, Mp + 41)
+    rows = torch.arange(16, device=cuda)
+    need = torch.ones((len(Ms), 16), dtype=torch.bool, device=cuda)
+    need[0, 2] = False
+    assert_fwd_matches_plain(pb, dev, rows, need)
+
+
+@pytest.mark.parametrize("Ms,Mp", [((1000, 700), 1024), ((1400,), 1536),
+                                   ((2000, 1900), 2048), ((3000,), 3072),
+                                   ((4000, 3900), 4096)],
+                         ids=["Mk1024", "Mk1536", "Mk2048", "Mk3072",
+                              "Mk4096"])
+def test_fwd_block_route_widths(cuda, Ms, Mp):
+    """The block route at every width it compiles for (32, 48, 64, 96 and
+    128 slots a lane: 4, 6, 8, 8 and 8 warps a pair, the transitions in
+    registers up to 8 slots a thread), on 61 lanes of 1 to 500 residues
+    with a random need mask."""
+    hmms = syn.sample_models(Ms, seed=Mp + 51)
+    aa = hmms[0].alphabet
+    bg = Background(aa)
+    pb = TB.ProfileBatch([Profile(h.M, aa).configure(h, bg, 400,
+                                                     multihit=True)
+                          for h in hmms], Mp=Mp).to(cuda)
+    codes, lengths = syn.make_lanes(hmms, 61, 500, seed=Mp + 53)
+    dev = TB.SeqDevice(codes, lengths, nonres_code=aa.nonresidue_code,
+                       device=cuda)
+    gen = torch.Generator().manual_seed(Mp)
+    rows = torch.randperm(61, generator=gen).to(cuda)
+    need = (torch.rand((len(Ms), 61), generator=gen) < 0.6).to(cuda)
+    assert_fwd_matches_plain(pb, dev, rows, need)
+
+
+def test_fwd_width_not_compiled_raises(cuda):
+    """``fwd_launch`` refuses a stripe width it has no instance for (0,
+    the wide route's, and widths outside ``STRIPES``) before it touches
+    a pointer, and ``fwd_block_warps`` gives the block route's warps a
+    pair only where it is compiled: nothing falls back."""
+    from pyhmmer_tpu_torch.ops import _build
+    lib = _build.lib()
+    for S in (0, 40, 256):
+        err = lib.fwd_launch(None, 1, None, None, None, None, None, None,
+                             None, 1, 29, S, None, None)
+        with pytest.raises(RuntimeError, match="fwd_launch"):
+            _build.check(err, "fwd_launch")
+        assert lib.fwd_block_warps(S) == 0
+    warps = {S: lib.fwd_block_warps(S) for S in TB.STRIPES}
+    assert warps == {**{S: 0 for S in TB.STRIPES if S < TB.FWD_WIDE_S},
+                     32: 4, 48: 6, 64: 8, 96: 8, 128: 8}
 
 
 def vit_routes(S):

@@ -1,18 +1,23 @@
 """Options of the port's application layer and engine, on the CPU: the
 six functions that take the JAX package's ``cpus`` argument accept it
-and ignore it, and the port's ``SearchEngine`` reports the JAX engine's
+and ignore it, ``hmmsearch(..., backend="oracle")`` gives the JAX
+package's sequential rows, and the port's ``SearchEngine`` reports the JAX engine's
 rows with the native host library switched off
 (``PYHMMER_TPU_NATIVE=0``), where ``domaindef`` runs in numpy and draws
 from the pipeline's random stream."""
+
+import io
 
 import numpy as np
 import pytest
 import torch
 
+from pyhmmer_tpu import hmmer as jax_hmmer
 from pyhmmer_tpu.engine import SearchEngine as JSearchEngine
 from pyhmmer_tpu.ops import native as jnative
 import pyhmmer_tpu_torch
 from pyhmmer_tpu_torch import _synthetic as syn
+from pyhmmer_tpu_torch.easel import SequenceFile
 from pyhmmer_tpu_torch.engine import SearchEngine
 from pyhmmer_tpu_torch.ops import native as tnative
 from pyhmmer_tpu_torch.plan7 import Background, Builder
@@ -78,6 +83,42 @@ def test_app_accepts_cpus(small, app):
     got = APPS[app](models, targets, query, cpus=4)
     assert got == want
     assert want, f"{app} gave no output to compare"
+
+
+@pytest.mark.parametrize("source", ["block", "file"])
+def test_hmmsearch_oracle_backend_matches_jax(small, source):
+    """``backend="oracle"`` runs the sequential ``Pipeline`` a query, as
+    the JAX package's ``hmmsearch`` does: the same rows as the JAX
+    package's oracle and as the port's engine, the callback called once
+    a query with the query and their count; a ``SequenceFile`` is read
+    whole (one block, so the rows and Z are the block's)."""
+    models, targets, _ = small
+    jmodels = [jax_hmm(h) for h in models]
+    want = list(jax_hmmer.hmmsearch(jmodels, jax_block(targets),
+                                    backend="oracle"))
+    engine = list(pyhmmer_tpu_torch.hmmsearch(models, targets,
+                                              device="cpu"))
+    seen = []
+    if source == "file":
+        fasta = io.StringIO()
+        for s in targets:
+            t = s.textize()
+            fasta.write(f">{t.name.decode()}\n{t.sequence}\n")
+        fasta.seek(0)
+        with SequenceFile(fasta, digital=True,
+                          alphabet=models[0].alphabet) as sf:
+            got = list(pyhmmer_tpu_torch.hmmsearch(
+                models, sf, device="cpu", backend="oracle",
+                callback=lambda q, n: seen.append((q.name, n))))
+    else:
+        got = list(pyhmmer_tpu_torch.hmmsearch(
+            models, targets, device="cpu", backend="oracle",
+            callback=lambda q, n: seen.append((q.name, n))))
+    assert [rows(th) for th in got] == [rows(th) for th in want]
+    assert [rows(th) for th in got] == [rows(th) for th in engine]
+    assert [th.Z for th in got] == [th.Z for th in want] == [len(targets)] * 2
+    assert seen == [(h.name, len(models)) for h in models]
+    assert sum(len(th.reported) for th in got) > 0
 
 
 def test_engine_without_native_matches_jax(monkeypatch):
