@@ -65,7 +65,10 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    versions;
 7. jackhmmer: two of those queries, three iterations each through the
    engine; for the first, every iteration equals ``IterativeSearch``
-   without an engine (rows, MSA size, convergence, iteration);
+   without an engine (rows, MSA size, convergence, iteration); the
+   engine's target buckets are packed once a query
+   (``engine._Buckets`` constructions counted by a wrapper set here:
+   ``bucket_builds``), not once a round;
 8. wide: the wide route (models over 4,096 slots, one CTA a pair) of
    each kernel against its plain version at Mk 4,608 (a sampled M 4,200
    model) and 9,216 (the model built from the 9,000-residue target)
@@ -85,18 +88,32 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    runs; the rows equal the host path's (``PYHMMER_TPU_NHMMER_DEVICE=0``)
    and every planted copy is reported on its strand; the gate launch
    with the most cells of each kernel against its plain version;
-10. hmmscan: the 4,002 targets scanned against the 245-model stack, once
+10. formats: (a) ``TopHits.write`` in the ``targets``, ``domains`` and
+    ``pfam`` formats gives the same bytes for phase 4's three queries
+    from the card's search (phase 3) as from the oracle's, and nhmmer's
+    long-target table of phase 9's last timed run those of its host
+    path; (b) the 4,002 targets written as a BLAST v4 protein volume
+    (``easel.ncbi.write_protein_db``) and searched with the 16 distinct
+    models through ``SequenceFile(format="ncbi")`` in 2 blocks give the
+    rows and Z of the in-memory search; (c) the MSA of the last
+    jackhmmer round's hits for the first query, written in Stockholm
+    and read back with ``MSAFile`` (digital), has the same names and
+    codes, builds (``Builder.build_msa`` on the card) the same model
+    arrays, and that model's search rows equal the oracle's (the MSA
+    jackhmmer emits repeats the query's name, for the query row and its
+    own hit, which Stockholm cannot carry);
+11. hmmscan: the 4,002 targets scanned against the 245-model stack, once
     warm and three timed runs, Z the number of models; the three
     targets with the most reported models against
     ``Pipeline.scan_seq``; then one scan of an ``hmmpress``ed copy of
     the stack through ``HMMPressedFile``, its rows those of the scan of
     the HMM list;
-11. cascade: ``parallel.mesh.ShardedCascade`` on a 2 x 2 mesh of the one
+12. cascade: ``parallel.mesh.ShardedCascade`` on a 2 x 2 mesh of the one
     card, the 16 distinct models at one ``Mp`` against the 4,002
     targets: MSV scores and overflow flags identical to one unsharded
     launch, ``n_pass`` equal, Forward within 5e-3 nats of one unsharded
     launch;
-12. sharded: ``sharded_search`` of the smoke search in 4 shards on the
+13. sharded: ``sharded_search`` of the smoke search in 4 shards on the
     card (one thread a shard, one shared host pool): its rows and Z
     identical to phase 3's single-shot search, then three timed runs
     (walls, shard walls, overlap factor; the counts read over the
@@ -104,16 +121,16 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
     against phase 4's single-shot one (the rows-on bars), so all four
     kernel files run on the path; then ``sharded_nhmmer`` of phase 9's
     models in 2 shards, its rows those of phase 9's single-shot runs;
-13. multihost: 2 ranks (``torch.distributed``, gloo on 127.0.0.1), each
+14. multihost: 2 ranks (``torch.distributed``, gloo on 127.0.0.1), each
     a fresh interpreter with its engine on the card
     (``parallel/_worker.py``), over the smoke search: both ranks' tables
     identical to phase 3's; each rank's walls, record bytes and kernel
     launches;
-14. entry: ``graft_entry.entry()``'s Forward step on the card against
+15. entry: ``graft_entry.entry()``'s Forward step on the card against
     the plain Forward on the same tensors (5e-3 nats), then
     ``graft_entry.dryrun_multichip(4)`` over the one card (its own
     checks and 2-process run);
-15. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
+16. neither ``jax`` nor any module of the JAX package ``pyhmmer_tpu``
     was imported: the port runs on its own host layers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
@@ -123,8 +140,8 @@ bound; Forward's block route has an entry of its own, ``fwd_block``,
 whose launches are among ``fwd``'s and whose first shape is the main
 path's first launch on it), and the one before that the card's name and
 power limit.  Phases
-3 and 5-14 set every kernel's launch counter to 0 just before the run
-they count and read them just after (the ranks of phase 13 count their
+3 and 5-15 set every kernel's launch counter to 0 just before the run
+they count and read them just after (the ranks of phase 14 count their
 own).  A plain version that takes many
 seconds (the 131,072-residue bucket, nhmmer's largest gate launch) is
 timed on its parity call alone.
@@ -132,6 +149,7 @@ timed on its parity call alone.
 
 import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -152,7 +170,8 @@ from pyhmmer_tpu_torch import engine as E  # noqa: E402
 from pyhmmer_tpu_torch import (hmmpress, hmmscan, hmmsearch,  # noqa: E402
                                jackhmmer, nhmmer, phmmer)
 from pyhmmer_tpu_torch import graft_entry  # noqa: E402
-from pyhmmer_tpu_torch.easel import DigitalSequenceBlock  # noqa: E402
+from pyhmmer_tpu_torch.easel import (DigitalSequenceBlock,  # noqa: E402
+                                     MSAFile, SequenceFile, ncbi)
 from pyhmmer_tpu_torch.ops import _build, _pairs  # noqa: E402
 from pyhmmer_tpu_torch.ops import batch as B  # noqa: E402
 from pyhmmer_tpu_torch.ops import (fwd_cuda, msv_cuda, native,  # noqa: E402
@@ -989,6 +1008,7 @@ def phase_correctness(queries, models, targets, planted, res):
         oracle_s=oracle_s, planted_recall=syn.recall(res, planted),
         queries_with_hits=sum(1 for th in res if th.reported),
         n_queries=len(res))
+    return picks, ref
 
 
 def phase_calibrate(smi, parity):
@@ -1146,21 +1166,44 @@ def phase_phmmer(smi, queries, targets, planted, models, parity):
     return launches
 
 
+@contextlib.contextmanager
+def counted_buckets():
+    """A list that grows by one at every construction of the engine's
+    target buckets (``engine._Buckets``, wrapped here and restored on
+    exit)."""
+    built, real = [], E._Buckets
+
+    class Counted(real):
+        def __init__(self, *args, **kwargs):
+            built.append(1)
+            super().__init__(*args, **kwargs)
+    E._Buckets = Counted
+    try:
+        yield built
+    finally:
+        E._Buckets = real
+
+
 def phase_jackhmmer(smi, queries, targets):
     """jackhmmer of the first two queries, three iterations each through
-    the engine; the first query's iterations against ``IterativeSearch``
-    without an engine."""
+    the engine, its target buckets packed once a query; the first
+    query's iterations against ``IterativeSearch`` without an engine.
+    Returns the launches and the first query's last iteration."""
     aa = targets.alphabet
     picks = queries[:2]
     reset_launches()
     t = time.time()
-    out = list(jackhmmer(picks, targets, device="cuda", max_iterations=3,
-                         checkpoints=True))
-    torch.cuda.synchronize()
+    with counted_buckets() as built:
+        out = list(jackhmmer(picks, targets, device="cuda",
+                             max_iterations=3, checkpoints=True))
+        torch.cuda.synchronize()
     wall = time.time() - t
     launches = read_launches()
     if launches["msv"] <= 0 or launches["fwd"] <= 0 or launches["rows"]:
         fail(f"jackhmmer: launches {launches}")
+    if len(built) != len(picks):
+        fail(f"jackhmmer: {len(built)} bucket builds for {len(picks)} "
+             f"queries of {[len(o) for o in out]} rounds (one a query)")
     t = time.time()
     search = Pipeline(aa, incE=0.001, incdomE=0.001).iterate_seq(
         picks[0], targets,
@@ -1187,8 +1230,9 @@ def phase_jackhmmer(smi, queries, targets):
         msa_sizes=[[len(r.msa) for r in o] for o in out],
         reported=[[len(r.hits.reported) for r in o] for o in out],
         converged=[o[-1].converged for o in out], wall_s=wall,
-        launches=launches, oracle_iterations=len(ref), oracle_s=oracle_s)
-    return launches
+        bucket_builds=len(built), launches=launches,
+        oracle_iterations=len(ref), oracle_s=oracle_s)
+    return launches, out[0][-1]
 
 
 #: the wide route's parity widths: a sampled model (Mp 4,224), and the
@@ -1449,7 +1493,130 @@ def phase_nhmmer(smi, parity):
         reported=[len(th.reported) for th in res], planted=len(planted),
         n_past=[(th.n_past_msv, th.n_past_bias, th.n_past_vit,
                  th.n_past_fwd) for th in res])
-    return launches, models, genome, res
+    return launches, models, genome, res, host
+
+
+def table(th, fmt):
+    """``th``'s hit table in ``fmt`` (``TopHits.write``)."""
+    buf = io.StringIO()
+    th.write(buf, format=fmt)
+    return buf.getvalue()
+
+
+def same_tables(got, want, what, fmts):
+    """Fail unless ``got`` and ``want`` write the same bytes in each of
+    ``fmts``; returns the bytes compared."""
+    n = 0
+    for g, w in zip(got, want):
+        for fmt in fmts:
+            a, b = table(g, fmt), table(w, fmt)
+            if a != b:
+                diff = next((x, y) for x, y in zip(
+                    a.splitlines() + [""], b.splitlines() + [""]) if x != y)
+                fail(f"formats: {what} {g.query_name.decode()} {fmt} table "
+                     f"differs: {diff}")
+            n += len(a)
+    return n
+
+
+def phase_formats(smi, picks, oracle, res, nh_res, nh_host, models,
+                  targets, last_round):
+    """The copied file formats on the main path: (a) the hit tables of
+    the card's search against the oracle's (phase 4's queries) and of
+    nhmmer's card run against its host path; (b) the 16 distinct models
+    against the targets read back from a BLAST volume in 2 blocks,
+    against the in-memory block; (c) a Stockholm round trip of the last
+    jackhmmer round's hits' MSA, its model built on the card from both
+    sides and searched.  Returns the launches of (b) and (c)."""
+    aa = targets.alphabet
+    t = time.time()
+    by_name = {th.query_name: th for th in res}
+    n_bytes = same_tables([by_name[m.name] for m in picks], oracle,
+                          "hmmsearch against the oracle",
+                          ("targets", "domains", "pfam"))
+    n_bytes += same_tables(nh_res, nh_host, "nhmmer against its host path",
+                           ("targets",))
+    tables_s = time.time() - t
+    reset_launches()
+    with tempfile.TemporaryDirectory() as td:
+        # (b) a BLAST v4 protein volume of the 4,002 targets
+        t = time.time()
+        base = os.path.join(td, "smoke")
+        ncbi.write_protein_db(targets, base)
+        write_s = time.time() - t
+        residues = int(sum(len(s) for s in targets))
+        per_block = residues // 2 + 1
+        t = time.time()
+        with SequenceFile(base, format="ncbi", digital=True,
+                          alphabet=aa) as f:
+            blocks = 0
+            while len(f.read_block(residues=per_block)):
+                blocks += 1
+        if blocks < 2:
+            fail(f"formats: the volume reads in {blocks} block")
+        count_s = time.time() - t
+        t = time.time()
+        with SequenceFile(base, format="ncbi", digital=True,
+                          alphabet=aa) as f:
+            vol = list(hmmsearch(models, f, device="cuda",
+                                 block_residues=per_block))
+        torch.cuda.synchronize()
+        volume_s = time.time() - t
+        t = time.time()
+        mem = list(hmmsearch(models, targets, device="cuda"))
+        torch.cuda.synchronize()
+        memory_s = time.time() - t
+        for a, b in zip(vol, mem):
+            if (rows(a), a.Z) != (rows(b), b.Z):
+                fail(f"formats: {a.query_name.decode()} from the BLAST "
+                     f"volume differs from the in-memory search")
+        # (c) the last jackhmmer round's hits, Stockholm and back
+        t = time.time()
+        msa = last_round.hits.to_msa(aa, all_consensus_cols=True,
+                                     digitize=True)
+        msa.name = last_round.msa.name
+        path = os.path.join(td, "jackhmmer.sto")
+        with open(path, "wb") as fh:
+            msa.write(fh, format="stockholm")
+        with MSAFile(path, format="stockholm", digital=True,
+                     alphabet=aa) as f:
+            back = f.read()
+        if back.names != msa.names or not np.array_equal(back.codes,
+                                                          msa.codes):
+            fail("formats: the Stockholm round trip changed the MSA")
+        bg = Background(aa)
+        h_mem = Builder(aa, device="cuda").build_msa(msa, bg)[0]
+        h_file = Builder(aa, device="cuda").build_msa(back, bg)[0]
+        for name in ("t", "mat", "ins", "evparam"):
+            if not np.array_equal(np.asarray(getattr(h_mem, name)),
+                                  np.asarray(getattr(h_file, name))):
+                fail(f"formats: the model built from the file differs in "
+                     f"{name}")
+        msa_s = time.time() - t
+        t = time.time()
+        got = next(hmmsearch(h_file, targets, device="cuda"))
+        torch.cuda.synchronize()
+        search_s = time.time() - t
+        t = time.time()
+        want = Pipeline(aa).search_hmm(h_file, targets)
+        oracle_s = time.time() - t
+        if (rows(got), got.Z) != (rows(want), want.Z) or not got.reported:
+            fail("formats: the model built from the Stockholm file "
+                 "searches unlike the oracle")
+    launches = read_launches()
+    need_launches("formats", launches, ("msv", "fwd", "vit"))
+    say("formats", card=smi, table_queries=[m.name.decode() for m in picks],
+        nhmmer_queries=[th.query_name.decode() for th in nh_res],
+        table_bytes=n_bytes, tables_s=tables_s, volume_write_s=write_s,
+        volume_blocks=blocks, volume_count_s=count_s,
+        volume_search_s=volume_s, memory_search_s=memory_s,
+        volume_models=len(models),
+        volume_reported=[len(th.reported) for th in vol],
+        msa_sequences=len(msa), msa_columns=msa.codes.shape[1],
+        msa_round_trip_s=msa_s, msa_model_M=h_file.M,
+        msa_search_s=search_s, msa_oracle_s=oracle_s,
+        msa_reported=len(got.reported), launches=launches)
+    return launches
 
 
 def phase_hmmscan(smi, queries, targets):
@@ -1748,17 +1915,21 @@ def main():
     # the main path of each kernel: rows off, and rows on for the rows
     # kernel (off by default, it runs only there)
     launches = dict(launches_off, rows=launches_on["rows"])
-    phase_correctness(queries, models, targets, planted, res)
+    picks, oracle = phase_correctness(queries, models, targets, planted,
+                                      res)
     forced_rows_on = phase_rows_correctness(queries, targets)
     by_path = {"rows_off": launches_off, "rows_on": launches_on,
                "calibrate": phase_calibrate(smi, parity)}
     seqs = phmmer_queries(targets, planted, models)
     by_path["phmmer"] = phase_phmmer(smi, seqs, targets, planted, models,
                                      parity)
-    by_path["jackhmmer"] = phase_jackhmmer(smi, seqs, targets)
+    by_path["jackhmmer"], last_round = phase_jackhmmer(smi, seqs, targets)
     by_path["wide"], by_path["wide_build"] = phase_wide(smi, targets,
                                                         parity)
-    by_path["nhmmer"], nh_models, genome, nh_res = phase_nhmmer(smi, parity)
+    (by_path["nhmmer"], nh_models, genome, nh_res,
+     nh_host) = phase_nhmmer(smi, parity)
+    by_path["formats"] = phase_formats(smi, picks, oracle, res, nh_res,
+                                       nh_host, models, targets, last_round)
     by_path["hmmscan"] = phase_hmmscan(smi, queries, targets)
     by_path["cascade"] = phase_cascade(smi, models, targets)
     (by_path["sharded"], by_path["sharded_rows"],

@@ -14,9 +14,11 @@ devices (``sharded_search``, ``sharded_nhmmer``, ``ShardedCascade``),
 ``parallel.multihost`` over processes (``torch.distributed``, gloo), and
 ``graft_entry`` holds the entry points (``entry``,
 ``dryrun_multichip``).  The package keeps its own copy of the host
-layers it needs (``easel``, ``plan7``, ``ops.{native,reference,
-quantize}``, ``daemon``, ``csrc/hmmdp.cpp``) and imports neither JAX nor
-any module of ``pyhmmer_tpu``.
+layers (``easel``, with the MSA files, genetic codes and BLAST volumes;
+``plan7``, with the hit tables; ``ops.{native,reference,quantize}``,
+``daemon``, ``csrc/hmmdp.cpp``), so that it defines every module of
+``pyhmmer_tpu`` but the Pallas kernels, and imports neither JAX nor any
+module of ``pyhmmer_tpu``.
 
 Builds, each at first use and never at import, under ``build/`` at the
 root of the checkout: the CUDA kernels (``csrc/*.cu``, nvcc for
@@ -31,9 +33,13 @@ tests skip); on a card, ``python3 chip_smoke.py`` and
 
 __version__ = "0.1.0"
 
+from . import daemon, easel, errors, hmmer, plan7
 from .engine import SearchEngine
 from .hmmer import (hmmalign, hmmpress, hmmscan, hmmsearch, jackhmmer,
                     nhmmer, phmmer)
 
-__all__ = ["hmmsearch", "hmmscan", "phmmer", "jackhmmer", "nhmmer",
-           "hmmalign", "hmmpress", "SearchEngine", "__version__"]
+__all__ = [
+    "easel", "errors", "plan7", "hmmer", "daemon",
+    "hmmsearch", "hmmscan", "phmmer", "nhmmer", "jackhmmer",
+    "hmmalign", "hmmpress", "SearchEngine", "__version__",
+]

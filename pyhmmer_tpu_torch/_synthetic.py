@@ -38,7 +38,7 @@ import numpy as np
 from .easel.alphabet import Alphabet
 from .easel.sequence import DigitalSequence, DigitalSequenceBlock
 from .plan7.background import Background
-from .plan7.hmm import HMM
+from .plan7.hmm import HMM, HMMFlags
 
 #: model lengths of the smoke query stack (16 distinct models)
 SMOKE_M = (50, 70, 90, 110, 130, 150, 170, 200, 250, 320, 400, 450, 520,
@@ -75,7 +75,8 @@ def model_checksum(h: HMM) -> str:
 
 def smoke_models() -> List[HMM]:
     """The 16 distinct smoke models with their stored E-value
-    parameters; raises if a model differs from the one calibrated."""
+    parameters, flagged calibrated; raises if a model differs from the
+    one calibrated."""
     with open(EVPARAMS) as fh:
         table = json.load(fh)
     models = sample_models(SMOKE_M, SMOKE_SEED)
@@ -87,6 +88,9 @@ def smoke_models() -> List[HMM]:
                 f"{model_checksum(h)} != stored {entry['checksum']}; "
                 f"numpy's random stream differs from the one calibrated")
         h.evparam[:] = entry["evparams"]
+        # calibrated, as ``Builder.calibrate`` marks them: the HMM text
+        # (the daemon's wire, hmmpress) carries the STATS lines
+        h.flags |= HMMFlags.STATS
     return models
 
 

@@ -5,8 +5,8 @@ Mirrors ``pyhmmer.easel.MSA``/``TextMSA``/``DigitalMSA`` (reference
 metadata + alignment annotation (RF/consensus lines), digitize/textize,
 sequence weights, identity filtering.
 
-The port's copy of ``pyhmmer_tpu/easel/msa.py`` without ``MSA.write``,
-whose formats live in ``msafile.py``, which the port does not copy.
+The port's copy of ``pyhmmer_tpu/easel/msa.py``; ``MSA.write``'s formats
+live in ``msafile.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,36 @@ class MSA:
         self.reference: Optional[bytes] = None          # GC RF
         self.consensus_structure: Optional[bytes] = None  # GC SS_cons
         self.model_mask: Optional[bytes] = None         # GC MM
+
+    def write(self, fh, format: str = "stockholm") -> None:
+        """Write the MSA to a binary file handle in any of the
+        reference's 10 formats (``MSA.write``; format list
+        ``easel.pyx:141-152``)."""
+        import io as _io
+        from . import msafile as MF
+
+        text = _io.StringIO()
+        if format in ("stockholm", "pfam"):
+            MF.write_stockholm(self, text)
+        elif format in ("afa", "fasta"):
+            MF.write_afa(self, text)
+        elif format == "a2m":
+            MF.write_a2m(self, text)
+        elif format == "psiblast":
+            MF.write_psiblast(self, text)
+        elif format == "clustal":
+            MF.write_clustal(self, text)
+        elif format == "clustallike":
+            MF.write_clustal(self, text, like=True)
+        elif format == "selex":
+            MF.write_selex(self, text)
+        elif format == "phylip":
+            MF.write_phylip(self, text)
+        elif format == "phylips":
+            MF.write_phylip(self, text, sequential=True)
+        else:
+            raise ValueError(f"unsupported MSA format: {format!r}")
+        fh.write(text.getvalue().encode("ascii"))
 
     def __len__(self) -> int:
         return len(self.names)

@@ -136,13 +136,20 @@ def _parse_embl_like(lines, fmt: str) -> Iterator[TextSequence]:
         yield from flush()
 
 
+_MSA_FORMATS = {"stockholm", "pfam", "afa", "a2m", "clustal", "clustallike",
+                "selex", "psiblast", "phylip", "phylips"}
+
+
 class SequenceFile:
     """Iterative reader over a sequence file.
 
     Supports ``format`` in {fasta, embl, genbank, ddbj, uniprot,
-    daemon}.  ``daemon`` is the hmmpgmd cached-database layout (header
-    line + FASTA records).  The JAX package's copy also reads ``ncbi``
-    BLAST volumes and every MSA format; the port leaves both out.
+    daemon, ncbi} plus every MSA format (delegated to
+    :class:`~pyhmmer_tpu_torch.easel.msafile.MSAFile`, matching reference
+    behavior ``easel.pyx:158-169``).  ``daemon`` is the hmmpgmd
+    cached-database layout (header line + FASTA records); ``ncbi``
+    reads BLAST v4 protein volumes (pass the basename or the ``.pin``
+    path; see :mod:`pyhmmer_tpu_torch.easel.ncbi` for the supported subset).
     The reference's ``fmindex`` format is not implemented (explicitly
     out of scope, SURVEY.md FM-index row).  ``digital=True`` yields
     :class:`DigitalSequence`.
@@ -166,7 +173,16 @@ class SequenceFile:
         self._path: Optional[str] = None
         if isinstance(file, (str, os.PathLike)):
             path = os.fspath(file)
-            if not os.path.exists(path):
+            if format and format.lower() == "ncbi":
+                # binary BLAST volume: the basename itself need not
+                # exist, its .pin member must
+                from . import ncbi as _ncbi
+                base = _ncbi._basename(path)
+                if not os.path.exists(base + ".pin"):
+                    raise FileNotFoundError(base + ".pin")
+                self._path = base
+                self.name = base
+            elif not os.path.exists(path):
                 raise FileNotFoundError(path)
             else:
                 self._path = path
@@ -198,6 +214,14 @@ class SequenceFile:
                 return gzip.open(self._path, "rt")
             return open(self._path, "r")
         return io.StringIO(self._textbuf)
+
+    def _full_text(self) -> str:
+        """Full contents -- only used for the MSA-format delegation,
+        whose parsers are whole-document by nature."""
+        if self._path is not None:
+            with self._open_lines() as fh:
+                return fh.read()
+        return self._textbuf
 
     # --- format/alphabet guessing -----------------------------------------
 
@@ -253,6 +277,20 @@ class SequenceFile:
                 yield from _parse_embl_like(fh, self.format)
             finally:
                 fh.close()
+        elif self.format == "ncbi":
+            from .ncbi import iter_protein_db
+            if self._path is None:
+                raise ValueError("ncbi format requires a path input")
+            for name, desc, seq in iter_protein_db(self._path):
+                yield TextSequence(name=name, description=desc,
+                                   sequence=seq)
+        elif self.format in _MSA_FORMATS:
+            from .msafile import MSAFile
+            with MSAFile(io.StringIO(self._full_text()),
+                         format=self.format) as mf:
+                for msa in mf:
+                    for seq in msa.sequences_as_unaligned():
+                        yield seq
         else:
             raise ValueError(f"unsupported sequence format: {self.format}")
 

@@ -220,6 +220,13 @@ class DigitalSequence(Sequence):
             return self
         return DigitalSequence(self.alphabet, sequence=rc, **self._meta())
 
+    def translate(self, genetic_code=None) -> "DigitalSequence":
+        """Translate a coding nucleotide sequence to protein
+        (``DigitalSequence.translate``)."""
+        from .gencode import GeneticCode
+        gc = genetic_code or GeneticCode(nucleotide_alphabet=self.alphabet)
+        return gc.translate_sequence(self)
+
     @classmethod
     def sample(cls, alphabet: Alphabet, max_length: int,
                randomness=None) -> "DigitalSequence":
@@ -366,6 +373,12 @@ class DigitalSequenceBlock(SequenceBlock):
 
     def textize(self) -> TextSequenceBlock:
         return TextSequenceBlock(s.textize() for s in self)
+
+    def translate(self, genetic_code=None) -> "DigitalSequenceBlock":
+        from .gencode import GeneticCode
+        gc = genetic_code or GeneticCode()
+        from .alphabet import AMINO
+        return DigitalSequenceBlock(AMINO, (gc.translate_sequence(s) for s in self))
 
     # --- TPU batch layout ---------------------------------------------------
 

@@ -249,7 +249,10 @@ class SearchEngine:
         self.device_rows = bool(device_rows)
         self.shared_executor = shared_executor
         self.options = pipeline_options
+        # persistent across searches: configured-model artifacts keyed by
+        # query identity, packed target buckets keyed by block identity
         self._model_cache: dict = {}
+        self._buckets_cache: Optional[tuple] = None
         self._streams: List[torch.cuda.Stream] = []
         self.last_timing: dict = {}
 
@@ -299,7 +302,13 @@ class SearchEngine:
             raise ValueError(
                 f"sequence length over comparison pipeline limit "
                 f"({MAX_TARGET_LENGTH})")
-        buckets = _Buckets(targets, self.device)
+        bkey = (id(targets), len(targets))
+        if self._buckets_cache is not None and self._buckets_cache[0] == bkey:
+            buckets = self._buckets_cache[2]
+        else:
+            buckets = _Buckets(targets, self.device)
+            # hold a reference to the block so id() stays unique
+            self._buckets_cache = (bkey, targets, buckets)
         results: List[Optional[TopHits]] = [None] * len(queries)
 
         for hmm in queries:

@@ -443,3 +443,14 @@ class TopHits:
         from .tracealign import tophits_to_msa
         return tophits_to_msa(self, alphabet, sequences, traces, trim,
                               digitize, all_consensus_cols)
+
+    def write(self, fh, format: str = "targets", header: bool = True) -> None:
+        from .output import write_targets, write_domains, write_pfam
+        if format == "targets":
+            write_targets(self, fh, header)
+        elif format == "domains":
+            write_domains(self, fh, header)
+        elif format == "pfam":
+            write_pfam(self, fh, header)
+        else:
+            raise ValueError(f"invalid format: {format!r}")

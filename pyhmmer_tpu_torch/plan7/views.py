@@ -69,6 +69,11 @@ class _ParamVector(np.ndarray):
             self._set(i, float(a))
             self._set(i + 1, float(b))
 
+    def as_vector(self):
+        from ..easel.containers import VectorF
+
+        return VectorF(np.asarray(self, dtype=np.float32))
+
     def __copy__(self):
         return self.copy()
 

@@ -20,8 +20,10 @@ from pyhmmer_tpu.plan7.background import Background
 from pyhmmer_tpu.plan7.builder import Builder
 import pyhmmer_tpu_torch
 from pyhmmer_tpu_torch import _synthetic as syn
+from pyhmmer_tpu_torch import engine as engine_mod
 from pyhmmer_tpu_torch.easel import (DigitalSequence, DigitalSequenceBlock,
                                      SequenceFile)
+from pyhmmer_tpu_torch.hmmer import JACKHMMER_ENGINE_MIN_TARGETS
 from pyhmmer_tpu_torch.ops import _pairs
 from pyhmmer_tpu_torch.plan7 import Pipeline
 from test_torch_host import jax_block, jax_hmm, port_hmm
@@ -112,6 +114,57 @@ def test_streamed_file_matches_block(workload):
         streamed = list(pyhmmer_tpu_torch.hmmsearch(
             hmms, sf, device="cpu", block_residues=20_000))
     assert [rows(th) for th in streamed] == [rows(th) for th in oracle]
+
+
+def count_bucket_builds(monkeypatch):
+    """A list that grows by one at every ``_Buckets`` construction."""
+    built = []
+
+    class Counted(engine_mod._Buckets):
+        def __init__(self, *args, **kwargs):
+            built.append(1)
+            super().__init__(*args, **kwargs)
+    monkeypatch.setattr(engine_mod, "_Buckets", Counted)
+    return built
+
+
+def test_repeated_block_reuses_its_buckets(workload, monkeypatch):
+    """A second search of one block on one engine packs no bucket and
+    reports the same rows and Z; a new block object of the same length
+    is packed anew."""
+    hmms, targets, _, oracle = workload
+    built = count_bucket_builds(monkeypatch)
+    eng = pyhmmer_tpu_torch.SearchEngine(hmms[0].alphabet, device="cpu")
+    want = [(rows(th), th.Z) for th in oracle]
+    assert [(rows(th), th.Z) for th in eng.search(hmms, targets)] == want
+    assert [(rows(th), th.Z) for th in eng.search(hmms, targets)] == want
+    assert len(built) == 1
+    same_length = DigitalSequenceBlock(targets.alphabet, list(targets))
+    assert [(rows(th), th.Z)
+            for th in eng.search(hmms, same_length)] == want
+    assert len(built) == 2
+
+
+def test_jackhmmer_packs_the_block_once_a_query(monkeypatch):
+    """jackhmmer's engine (one a query) packs the block in the first
+    round only; the rounds' rows equal the JAX package's."""
+    models = syn.sample_models((60, 110), seed=21)
+    block, planted = syn.make_targets(models, 120, seed=22, median=160.0,
+                                      sigma=0.4)
+    assert len(block) >= JACKHMMER_ENGINE_MIN_TARGETS
+    names = [sorted(planted[h.name])[0] for h in models]
+    jblock = jax_block(block)
+    built = count_bucket_builds(monkeypatch)
+    got = [list(it) for it in pyhmmer_tpu_torch.jackhmmer(
+        [s for n in names for s in block if s.name == n], block,
+        device="cpu", max_iterations=3, checkpoints=True)]
+    assert len(built) == len(names)
+    want = [list(it) for it in jax_hmmer.jackhmmer(
+        [s for n in names for s in jblock if s.name == n], jblock,
+        max_iterations=3, checkpoints=True)]
+    assert [[rows(r.hits) for r in q] for q in got] == \
+        [[rows(r.hits) for r in q] for q in want]
+    assert max(len(q) for q in got) >= 2
 
 
 def test_cuda_device_raises_without_cuda(workload, monkeypatch):
