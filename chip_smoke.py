@@ -69,6 +69,24 @@ Drives ``pyhmmer_tpu_torch`` end to end on the seeded smoke workload
    engine's target buckets are packed once a query
    (``engine._Buckets`` constructions counted by a wrapper set here:
    ``bucket_builds``), not once a round;
+7a. caches: one engine searches copies of the first 2 models against
+    copies of 256 targets without their planted ones, again unedited,
+    after ``pop``/``append`` of their planted targets on the same block
+    object, after a planted domain is written into one item's residue
+    array, and after one model's match rows are edited in place; each
+    time its rows and Z equal a fresh engine's and the oracle's, and
+    it packs the block (``bucket_builds``) once after each block edit
+    and not otherwise; then the cost of the two cache keys
+    (``engine.block_key`` over the 4,002 targets, ``engine.model_key``
+    over the 245 queries) beside one ``_Buckets`` build of the block on
+    the card, upload included;
+7b. daemon: ``daemon.Server(device="cuda")`` on 127.0.0.1, over 512
+    targets and the 16 models: a served ``search_seq`` of a planted
+    target launches exactly one MSV and one Viterbi (its calibration on
+    the card) and gives ``Pipeline.search_seq``'s hits with a
+    ``Builder`` on the card; a served ``search_hmm`` and ``scan_seq``
+    give ``Pipeline.search_hmm``'s and ``Pipeline.scan_seq``'s (scores
+    within the wire's f32);
 8. wide: the wide route (models over 4,096 slots, one CTA a pair) of
    each kernel against its plain version at Mk 4,608 (a sampled M 4,200
    model) and 9,216 (the model built from the 9,000-residue target)
@@ -140,7 +158,8 @@ bound; Forward's block route has an entry of its own, ``fwd_block``,
 whose launches are among ``fwd``'s and whose first shape is the main
 path's first launch on it), and the one before that the card's name and
 power limit.  Phases
-3 and 5-15 set every kernel's launch counter to 0 just before the run
+3 and 5-15 (7a and 7b among them) set every kernel's launch counter to
+0 just before the run
 they count and read them just after (the ranks of phase 14 count their
 own).  A plain version that takes many
 seconds (the 131,072-residue bucket, nhmmer's largest gate launch) is
@@ -169,7 +188,7 @@ from pyhmmer_tpu_torch import _synthetic as syn  # noqa: E402
 from pyhmmer_tpu_torch import engine as E  # noqa: E402
 from pyhmmer_tpu_torch import (hmmpress, hmmscan, hmmsearch,  # noqa: E402
                                jackhmmer, nhmmer, phmmer)
-from pyhmmer_tpu_torch import graft_entry  # noqa: E402
+from pyhmmer_tpu_torch import daemon, graft_entry  # noqa: E402
 from pyhmmer_tpu_torch.easel import (DigitalSequenceBlock,  # noqa: E402
                                      MSAFile, SequenceFile, ncbi)
 from pyhmmer_tpu_torch.ops import _build, _pairs  # noqa: E402
@@ -178,7 +197,8 @@ from pyhmmer_tpu_torch.ops import (fwd_cuda, msv_cuda, native,  # noqa: E402
                                    rows_cuda, vit_cuda)
 from pyhmmer_tpu_torch.parallel import _worker, mesh  # noqa: E402
 from pyhmmer_tpu_torch.plan7 import (Background, Builder,  # noqa: E402
-                                     HMMPressedFile, Pipeline, Profile)
+                                     HMMFile, HMMPressedFile, Pipeline,
+                                     Profile)
 
 
 def _script(name):
@@ -887,7 +907,7 @@ def phase_search(queries, targets, device_rows=False):
     # Forward kernel's)
     tables = {}
     for c in eng._model_cache.values():
-        for name, buf in c[3].named_buffers():
+        for name, buf in c[4].named_buffers():
             tables[name] = (tables.get(name, 0)
                             + buf.numel() * buf.element_size())
     say("search" + suffix, queries=len(queries), targets=len(targets),
@@ -1233,6 +1253,216 @@ def phase_jackhmmer(smi, queries, targets):
         bucket_builds=len(built), launches=launches,
         oracle_iterations=len(ref), oracle_s=oracle_s)
     return launches, out[0][-1]
+
+
+#: targets of phase ``caches``' sub-block, and of phase ``daemon``'s
+#: sequence database
+CACHE_TARGETS = 256
+DAEMON_TARGETS = 512
+
+
+def hit_table(results):
+    """Each query's name, reported rows and Z."""
+    return [(th.query_name, rows(th), th.Z) for th in results]
+
+
+def phase_caches(smi, queries, models, targets, planted):
+    """The engine's two caches after in-place edits, on the card: one
+    engine searches copies of the first 2 models against copies of
+    :data:`CACHE_TARGETS` targets without their planted ones, then again
+    unedited, then after ``pop``/``append`` of their 8 planted targets on
+    the same block object (its length kept), then after a planted domain
+    is written into one item's residue array, then after one model's
+    match rows are moved halfway to uniform in place; each time its rows
+    and Z equal a fresh engine's and ``Pipeline.search_hmm``'s (for the
+    unedited repeat: those the first search gave), and its
+    ``_Buckets`` builds are 1 after a block edit and 0 otherwise.  Then
+    the cost of the two cache keys over the whole block and the 245
+    queries, beside one ``_Buckets`` build of the block on the card,
+    upload included.  Returns the launches."""
+    t0 = time.time()
+    aa = targets.alphabet
+    pair = [h.copy() for h in models[:2]]
+    names = planted[pair[0].name] | planted[pair[1].name]
+    block = DigitalSequenceBlock(aa, [s.copy() for s in targets
+                                      if s.name not in names]
+                                 [:CACHE_TARGETS])
+    plants = [s.copy() for s in targets if s.name in names]
+    eng = E.SearchEngine(aa, device="cuda")
+    checks = []
+
+    def search(what, builds, changed=None, unedited=None):
+        with counted_buckets() as built:
+            t = time.time()
+            got = hit_table(eng.search(pair, block))
+            torch.cuda.synchronize()
+            wall = time.time() - t
+        t = time.time()
+        if unedited is None:
+            fresh = hit_table(E.SearchEngine(aa, device="cuda").search(
+                pair, block))
+            want = hit_table([Pipeline(aa).search_hmm(h, block)
+                              for h in pair])
+        else:
+            # nothing changed: a fresh engine and the oracle give the
+            # rows they gave on the last search
+            fresh = want = unedited
+        oracle_s = time.time() - t
+        if got != fresh or got != want:
+            fail(f"caches, {what}: the reused engine's rows differ from "
+                 f"a fresh engine's or the oracle's")
+        if len(built) != builds:
+            fail(f"caches, {what}: {len(built)} bucket builds, expected "
+                 f"{builds}")
+        if changed is not None and got == changed:
+            fail(f"caches, {what}: the edit changed no row")
+        checks.append({"search": what, "bucket_builds": len(built),
+                       "wall_s": wall, "fresh_and_oracle_s": oracle_s,
+                       "reported": [len(r) for _, r, _ in got]})
+        return got
+
+    reset_launches()
+    first = search("first", 1)
+    search("repeat, unedited", 0, unedited=first)
+    for p in plants:
+        block.pop(0)
+        block.append(p)
+    moved = search("pop/append of the planted targets", 1, first)
+    rng = np.random.default_rng(syn.SMOKE_SEED)
+    dom = np.concatenate([syn.plant(pair[1], rng, 1.0) for _ in range(2)])
+    item = next(s for s in block
+                if s.name not in names and len(s) >= len(dom) + 20)
+    item.sequence[10: 10 + len(dom)] = dom
+    written = search("a planted domain written in place", 1, moved)
+    me = pair[1].match_emissions
+    me[1:] = 0.5 * me[1:] + 0.5 / me.shape[1]
+    search("match rows of a model moved in place", 0, written)
+    launches = read_launches()
+    if launches["msv"] <= 0 or launches["rows"]:
+        fail(f"caches: launches {launches}")
+    key_ms = {"block_key": [], "model_key": [], "buckets_build": []}
+    for _ in range(3):
+        t = time.perf_counter()
+        E.block_key(targets)
+        key_ms["block_key"].append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        for h in queries:
+            E.model_key(h)
+        key_ms["model_key"].append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        E._Buckets(targets, "cuda")
+        torch.cuda.synchronize()
+        key_ms["buckets_build"].append(1e3 * (time.perf_counter() - t))
+    say("caches", card=smi, models=[h.name.decode() for h in pair],
+        targets=len(block), planted=len(plants), checks=checks,
+        launches=launches, keys_over_targets=len(targets),
+        keys_over_residues=int(sum(len(s) for s in targets)),
+        keys_over_queries=len(queries), ms=key_ms,
+        phase_s=time.time() - t0)
+    return launches
+
+
+def wire_model(hmm):
+    """``hmm`` as the daemon's server reads it off the wire (HMMER3
+    text)."""
+    buf = io.BytesIO()
+    hmm.write(buf)
+    with HMMFile(io.BytesIO(buf.getvalue())) as f:
+        return f.read()
+
+
+def same_hits(got, want, what):
+    """Fail unless the served ``got`` reports ``want``'s hits: names,
+    inclusion, domain envelopes and Z identical, scores within 1e-4 bits
+    and ln P within a relative 1e-6 (the wire carries them as f32)."""
+    if len(got) != len(want) or not len(want) or got.Z != want.Z:
+        fail(f"daemon {what}: {len(got)} hits, Z {got.Z}; expected "
+             f"{len(want)}, Z {want.Z}")
+    for g, w in zip(got, want):
+        if (g.name, g.included, [(d.env_from, d.env_to) for d in g.domains]
+                ) != (w.name, w.included,
+                      [(d.env_from, d.env_to) for d in w.domains]):
+            fail(f"daemon {what}: hit {w.name.decode()} differs")
+        if abs(g.score - w.score) > 1e-4 or \
+                abs(g.lnP - w.lnP) > 1e-6 * abs(w.lnP):
+            fail(f"daemon {what}: hit {w.name.decode()} scores "
+                 f"{g.score} (ln P {g.lnP}) against {w.score} ({w.lnP})")
+
+
+def phase_daemon(smi, models, targets, planted):
+    """``daemon.Server(device="cuda")`` on 127.0.0.1 holding the first
+    :data:`DAEMON_TARGETS` targets and the 16 models: one served
+    ``search_seq`` of a planted target in it (counts set to 0 just
+    before, read just after: exactly one MSV and one Viterbi launch, the
+    query's calibration on the card), ``search_hmm`` of that target's
+    model and ``scan_seq`` of it, against ``Pipeline.search_seq`` with a
+    ``Builder`` on the card, ``Pipeline.search_hmm`` of the model read
+    back from its wire text, and ``Pipeline.scan_seq``.  The query is the
+    planted target of the database with the least residues and match
+    states together whose own model finds it with a P-value under 1e-6
+    (the sequential ``Pipeline`` against it alone), and the model that
+    one.  Returns the launches of the three served queries."""
+    t0 = time.time()
+    aa = targets.alphabet
+    db = DigitalSequenceBlock(aa, list(targets)[:DAEMON_TARGETS])
+    owner = {n: h for h in models for n in planted[h.name]}
+    query = model = None
+    for s in sorted((s for s in db if s.name in owner),
+                    key=lambda s: (len(s) + owner[s.name].M, s.name)):
+        alone = Pipeline(aa).search_hmm(owner[s.name],
+                                        DigitalSequenceBlock(aa, [s]))
+        if alone.reported and alone.reported[0].evalue < 1e-6:
+            query, model = s, owner[s.name]
+            break
+    if query is None:
+        fail("daemon: no planted target of the sequence database is found "
+             "by its model")
+    server = daemon.Server(seqdbs=[db], hmmdbs=[models],
+                           address="127.0.0.1", port=0, device="cuda")
+    server.start()
+    walls = {}
+    try:
+        with daemon.Client("127.0.0.1", server.port) as client:
+            reset_launches()
+            t = time.time()
+            got_seq = client.search_seq(query)
+            walls["search_seq"] = time.time() - t
+            seq_launches = read_launches()
+            t = time.time()
+            got_hmm = client.search_hmm(model)
+            walls["search_hmm"] = time.time() - t
+            t = time.time()
+            got_scan = client.scan_seq(query)
+            walls["scan_seq"] = time.time() - t
+            launches = read_launches()
+    finally:
+        server.shutdown()
+    want = {"msv": 1, "vit": 1, "fwd": 0, "rows": 0}
+    if {k: seq_launches[k] for k in want} != want:
+        fail(f"daemon: the served sequence query launched {seq_launches}, "
+             f"expected its calibration on the card ({want})")
+    if launches != seq_launches:
+        fail(f"daemon: the served HMM query or scan launched a kernel "
+             f"({launches} against {seq_launches})")
+    t = time.time()
+    ref_seq = Pipeline(aa).search_seq(query, db, Builder(aa, device="cuda"))
+    ref_hmm = Pipeline(aa).search_hmm(wire_model(model), db)
+    ref_scan = Pipeline(aa).scan_seq(query, models)
+    oracle_s = time.time() - t
+    same_hits(got_seq, ref_seq, "search_seq")
+    same_hits(got_hmm, ref_hmm, "search_hmm")
+    same_hits(got_scan, ref_scan, "scan_seq")
+    if got_seq.reported[0].name != query.name:
+        fail("daemon search_seq: the query is not its own best hit")
+    say("daemon", card=smi, targets=len(db), models=len(models),
+        query=query.name.decode(), query_length=len(query),
+        model=model.name.decode(), served_wall_s=walls,
+        reported={"search_seq": len(got_seq.reported),
+                  "search_hmm": len(got_hmm.reported),
+                  "scan_seq": len(got_scan.reported)},
+        launches=launches, oracle_s=oracle_s, phase_s=time.time() - t0)
+    return launches
 
 
 #: the wide route's parity widths: a sampled model (Mp 4,224), and the
@@ -1924,6 +2154,8 @@ def main():
     by_path["phmmer"] = phase_phmmer(smi, seqs, targets, planted, models,
                                      parity)
     by_path["jackhmmer"], last_round = phase_jackhmmer(smi, seqs, targets)
+    by_path["caches"] = phase_caches(smi, queries, models, targets, planted)
+    by_path["daemon"] = phase_daemon(smi, models, targets, planted)
     by_path["wide"], by_path["wide_build"] = phase_wide(smi, targets,
                                                         parity)
     (by_path["nhmmer"], nh_models, genome, nh_res,

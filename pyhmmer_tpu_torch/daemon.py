@@ -2,11 +2,12 @@
 wire codec that the multi-host runtime's hit records reuse.
 
 The port's copy of ``pyhmmer_tpu/daemon.py``, line for line but the
-imports: a TCP protocol where the client sends one option line
-(``@--seqdb <db> <flags>\\n`` or ``@--hmmdb <db> <flags>\\n``) followed by
-the serialized query terminated by ``\\n//``, and receives a
-``HMMD_SEARCH_STATUS`` header, a ``HMMD_SEARCH_STATS`` block and an array
-of serialized ``P7_HIT`` records, in network byte order.  The
+imports and the :class:`Server`'s ``device``: a TCP protocol where the
+client sends one option line (``@--seqdb <db> <flags>\\n`` or
+``@--hmmdb <db> <flags>\\n``) followed by the serialized query terminated
+by ``\\n//``, and receives a ``HMMD_SEARCH_STATUS`` header, a
+``HMMD_SEARCH_STATS`` block and an array of serialized ``P7_HIT``
+records, in network byte order.  The
 :class:`Server` holds target databases in memory and answers searches
 with the sequential :class:`~pyhmmer_tpu_torch.plan7.pipeline.Pipeline`;
 client and server of this package are mutually compatible.
@@ -25,6 +26,7 @@ import struct
 import threading
 from typing import List, Optional, Tuple
 
+from ._device import resolve_device
 from .errors import ServerError
 from .easel.alphabet import Alphabet
 from .easel.sequence import DigitalSequenceBlock
@@ -495,15 +497,18 @@ class Server:
     profile databases (``hmmdbs``: lists of `HMM`) cached in RAM like
     hmmpgmd's ``cachedb.c``, and answers `Client` searches over TCP.
     Databases are addressed by 1-based index, matching the ``db`` argument
-    of the client methods.
+    of the client methods.  ``device`` is where the `Builder` of a
+    sequence query calibrates its model: a CUDA device (the default, which
+    must exist) runs the port's kernels, ``"cpu"`` their plain versions.
     """
 
     def __init__(self, seqdbs=(), hmmdbs=(), address: str = DEFAULT_ADDRESS,
-                 port: int = 0):
+                 port: int = 0, device="cuda"):
         self.seqdbs = list(seqdbs)
         self.hmmdbs = list(hmmdbs)
         self.address = address
         self.port = port
+        self.device = resolve_device(device)
         self._server: Optional[socketserver.ThreadingTCPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -542,7 +547,8 @@ class Server:
             pli = Pipeline(alphabet, **kwargs)
             if isinstance(query, HMM):
                 return pli.search_hmm(query, targets)
-            return pli.search_seq(query, targets, Builder(alphabet))
+            return pli.search_seq(query, targets,
+                                  Builder(alphabet, device=self.device))
         elif mode == "--hmmdb":
             models = self.hmmdbs[db - 1]
             alphabet = models[0].alphabet

@@ -31,6 +31,7 @@ copy.
 from __future__ import annotations
 
 import concurrent.futures as _cf
+import hashlib
 import math
 import os
 import time
@@ -118,6 +119,50 @@ class _Buckets:
                                                  device)))
 
 
+def block_key(block: DigitalSequenceBlock) -> bytes:
+    """A digest of all that :class:`_Buckets` packs from ``block``: the
+    fill code, then each item's length and residue codes, in order.  The
+    names and the other fields of the items reach the hits from the block
+    itself, at result time, so they stay out of it."""
+    d = hashlib.blake2b(digest_size=32)
+    d.update(np.int64(block.alphabet.nonresidue_code).tobytes())
+    d.update(np.array([len(s) for s in block], np.int64).tobytes())
+    for s in block:
+        d.update(np.ascontiguousarray(s.sequence, np.uint8))
+    return d.digest()
+
+
+def _update(d, value) -> None:
+    """Feed ``value`` (an array, or a scalar, bytes or None) to the
+    digest ``d``, dtype and shape first, so no two values feed alike."""
+    if isinstance(value, np.ndarray):
+        a = np.ascontiguousarray(value)
+        d.update(repr((a.dtype.str, a.shape)).encode())
+        d.update(a)
+    else:
+        d.update(repr(value).encode())
+
+
+def model_key(hmm: HMM) -> bytes:
+    """A digest of every field of ``hmm`` that ``Profile.configure``
+    (``plan7/profile.py``) and :class:`_ChunkState` read: ``M``, ``t``
+    (the transitions and match occupancy), ``mat``, ``ins`` and
+    ``composition`` (with ``flags``, the bias filter's composition, set
+    from ``mat``, ``ins`` and ``t`` when it is not flagged), ``evparam``,
+    ``cutoffs`` (the pipelines' bit cutoffs), ``max_length``, ``name``,
+    ``accession``, ``description``, ``consensus``,
+    ``consensus_structure``, and the alphabet.  Exact: the arrays' bytes,
+    not ``HMM.__eq__``'s ``np.allclose``."""
+    d = hashlib.blake2b(digest_size=32)
+    for value in (hmm.M, hmm.t, hmm.mat, hmm.ins, hmm.composition,
+                  hmm.evparam, hmm.cutoffs, int(hmm.flags), hmm.max_length,
+                  hmm.name, hmm.accession, hmm.description, hmm.consensus,
+                  hmm.consensus_structure, hmm.alphabet.type,
+                  hmm.alphabet.symbols):
+        _update(d, value)
+    return d.digest()
+
+
 def group_queries(queries: Sequence[HMM]) -> dict:
     """``{Mp: [query index, ...]}``: queries grouped by model width padded
     to 32; groups of fewer than 32 profiles coalesce upward at 128
@@ -158,15 +203,18 @@ def _fetch_all(parts: List[torch.Tensor]) -> List[np.ndarray]:
 class _ChunkState:
     """Per-chunk (stack of <= P_MAX same-Mp profiles) search state; the
     configured profiles and the device ``ProfileBatch`` are memoized on
-    the engine by query identity."""
+    the engine by the queries' identity and content (:func:`model_key`):
+    an entry holds its queries, and a query edited in place since it was
+    configured replaces its chunk's entry."""
 
     def __init__(self, engine: "SearchEngine", queries, chunk, Mp):
         bg = engine.background
         self.chunk = chunk
         key = (tuple(id(queries[qi]) for qi in chunk), Mp)
+        digests = [model_key(queries[qi]) for qi in chunk]
         cached = engine._model_cache.get(key)
-        if cached is not None and any(
-                h is not queries[qi] for h, qi in zip(cached[0], chunk)):
+        if cached is not None and (cached[1] != digests or any(
+                h is not queries[qi] for h, qi in zip(cached[0], chunk))):
             cached = None
         if cached is None:
             profs, profs_uni = [], []
@@ -180,10 +228,10 @@ class _ChunkState:
             ev = np.stack([p.evparam.astype(np.float64) for p in profs])
             for p in profs:
                 _native.prewarm(p)
-            cached = (list(queries[qi] for qi in chunk), profs, profs_uni,
-                      pb, ev)
+            cached = (list(queries[qi] for qi in chunk), digests, profs,
+                      profs_uni, pb, ev)
             engine._model_cache[key] = cached
-        _, self.profs, self.profs_uni, self.pb, self.ev = cached
+        _, _, self.profs, self.profs_uni, self.pb, self.ev = cached
 
         self.pipelines = []
         for pi, qi in enumerate(chunk):
@@ -250,7 +298,8 @@ class SearchEngine:
         self.shared_executor = shared_executor
         self.options = pipeline_options
         # persistent across searches: configured-model artifacts keyed by
-        # query identity, packed target buckets keyed by block identity
+        # the queries' identity and content, the packed target buckets of
+        # the last block by its identity and content (:func:`block_key`)
         self._model_cache: dict = {}
         self._buckets_cache: Optional[tuple] = None
         self._streams: List[torch.cuda.Stream] = []
@@ -302,7 +351,9 @@ class SearchEngine:
             raise ValueError(
                 f"sequence length over comparison pipeline limit "
                 f"({MAX_TARGET_LENGTH})")
-        bkey = (id(targets), len(targets))
+        # the block is mutable (its items and their residue arrays): reuse
+        # its buckets only while it holds the residues they were packed from
+        bkey = (id(targets), len(targets), block_key(targets))
         if self._buckets_cache is not None and self._buckets_cache[0] == bkey:
             buckets = self._buckets_cache[2]
         else:

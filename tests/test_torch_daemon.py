@@ -8,10 +8,10 @@ the port's client against the JAX package's server (the cases of
 query travels as HMMER3 text, so the reference searches the model read
 back from that text; the wire carries scores as f32, hence the 1e-4
 bits and the relative 1e-6 on ln P of the JAX package's tests.  The
-server builds sequence queries with the port's ``Builder``, which runs
-on the card by default: the tests give it ``device="cpu"``."""
+server builds sequence queries with the port's ``Builder`` on the
+device it is given, the card by default: the tests give it
+``device="cpu"``."""
 
-import functools
 import io
 import threading
 
@@ -39,16 +39,11 @@ def served():
                                sigma=0.4)
     best = Pipeline(seqs.alphabet).search_hmm(models[2], seqs).reported[0]
     query = next(s for s in seqs if s.name == best.name)
-    server = daemon.Server(seqdbs=[seqs], hmmdbs=[models], port=0)
+    server = daemon.Server(seqdbs=[seqs], hmmdbs=[models], port=0,
+                           device="cpu")
     server.start()
     yield server, seqs, models, query
     server.shutdown()
-
-
-@pytest.fixture(autouse=True)
-def builder_on_the_cpu(monkeypatch):
-    monkeypatch.setattr(daemon, "Builder",
-                        functools.partial(Builder, device="cpu"))
 
 
 def wire_model(hmm):
@@ -100,6 +95,33 @@ def test_client_search_seq_with_ranges(served):
     # the query finds itself inside the range it lies in
     assert any(h.name == name for h in sub)
     assert {h.name for h in sub} <= {h.name for h in full}
+
+
+def test_served_search_seq_builds_on_the_server_device(served):
+    """A served sequence query (the best hit of the first model) is built
+    by a ``Builder`` on the server's device: its hits are those of
+    ``Pipeline.search_seq`` with a CPU builder."""
+    server, seqs, models, _ = served
+    assert server.device == torch.device("cpu")
+    best = Pipeline(seqs.alphabet).search_hmm(models[0], seqs).reported[0]
+    query = next(s for s in seqs if s.name == best.name)
+    want = Pipeline(seqs.alphabet).search_seq(
+        query, seqs, Builder(seqs.alphabet, device="cpu"))
+    with daemon.Client("127.0.0.1", server.port) as client:
+        got = client.search_seq(query)
+    assert_same_hits(got, want)
+    assert got.reported[0].name == query.name
+
+
+def test_server_without_cuda_raises(monkeypatch):
+    """The server's default device is the card: without CUDA it raises,
+    unless it is given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        daemon.Server()
+    with pytest.raises(RuntimeError, match="cuda"):
+        daemon.Server(device="cuda:0")
+    assert daemon.Server(device="cpu").device == torch.device("cpu")
 
 
 def test_client_scan_seq(served):

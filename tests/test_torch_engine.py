@@ -167,6 +167,192 @@ def test_jackhmmer_packs_the_block_once_a_query(monkeypatch):
     assert max(len(q) for q in got) >= 2
 
 
+def count_configures(monkeypatch):
+    """A list that grows by the query's name at every profile the engine
+    configures (two a query: multihit and unihit)."""
+    configured = []
+
+    class Counted(engine_mod.Profile):
+        def configure(self, hmm, *args, **kwargs):
+            configured.append(hmm.name)
+            return super().configure(hmm, *args, **kwargs)
+    monkeypatch.setattr(engine_mod, "Profile", Counted)
+    return configured
+
+
+def planted_apart(seed=7):
+    """The first 2 smoke models; 200 seeded targets whose planted ones
+    (4 a model) are swapped out for random stand-ins of their lengths
+    (``random<n>``); the planted targets, the stand-ins, and the block
+    with its planted targets."""
+    models = syn.smoke_models()[:2]
+    full, planted = syn.make_targets(models, 200, seed=seed)
+    names = set().union(*planted.values())
+    aa = full.alphabet
+    rng = np.random.default_rng(seed)
+    items, plants, standins = [], [], []
+    for s in full:
+        if s.name in names:
+            r = DigitalSequence(aa, name=b"random" + s.name[6:],
+                                sequence=rng.integers(0, aa.K, len(s))
+                                .astype(np.uint8))
+            plants.append(s)
+            standins.append(r)
+            s = r
+        items.append(s)
+    return (models, DigitalSequenceBlock(aa, items), plants, standins,
+            full)
+
+
+def pop_append(block, plants, standins, full, models):
+    for p in plants:
+        block.pop(0)
+        block.append(p)
+
+
+def remove_insert(block, plants, standins, full, models):
+    for p, r in zip(plants, standins):
+        at = block.index(r)
+        block.remove(r)
+        block.insert(at, p)
+
+
+def clear_extend(block, plants, standins, full, models):
+    block.clear()
+    block.extend(full)
+
+
+def write_in_place(block, plants, standins, full, models):
+    """A strong domain of the second model, twice in tandem (as
+    ``make_targets`` plants its strong ones), written into a stand-in's
+    residue array."""
+    rng = np.random.default_rng(3)
+    dom = np.concatenate([syn.plant(models[1], rng, 1.0) for _ in range(2)])
+    seq = next(r for r in standins if len(r) >= len(dom) + 20).sequence
+    seq[10: 10 + len(dom)] = dom
+
+
+@pytest.mark.parametrize("edit", [pop_append, remove_insert, clear_extend,
+                                  write_in_place],
+                         ids=lambda f: f.__name__)
+def test_block_edited_in_place_is_packed_anew(monkeypatch, edit):
+    """After an edit of the searched block object (its length kept), the
+    same engine packs it anew and reports the rows and Z of a fresh
+    engine and of a fresh JAX engine on the edited block."""
+    models, block, plants, standins, full = planted_apart()
+    length = len(block)
+    eng = pyhmmer_tpu_torch.SearchEngine(block.alphabet, device="cpu")
+    before = [(rows(th), th.Z) for th in eng.search(models, block)]
+    edit(block, plants, standins, full, models)
+    assert len(block) == length
+    built = count_bucket_builds(monkeypatch)
+    got = [(rows(th), th.Z) for th in eng.search(models, block)]
+    assert len(built) == 1
+    fresh = [(rows(th), th.Z) for th in pyhmmer_tpu_torch.SearchEngine(
+        block.alphabet, device="cpu").search(models, block)]
+    want = [(rows(th), th.Z) for th in jax_hmmer.hmmsearch(
+        [jax_hmm(h) for h in models], jax_block(block))]
+    assert got == fresh == want
+    assert got != before
+    if edit is pop_append:
+        # the stale buckets reported [0, 0]
+        assert [len(r) for r, _ in got] == [1, 2]
+
+
+def scale_matches(h):
+    me = h.match_emissions
+    me[1:] = 0.5 * me[1:] + 0.5 / me.shape[1]
+
+
+def shift_deletions(h):
+    t = h.transition_probabilities
+    d = 0.5 * t[1: h.M, 0]
+    t[1: h.M, 0] -= d
+    t[1: h.M, 2] += d
+
+
+def shift_tau(h):
+    h.evparam[4] += 1.5
+
+
+def raise_gathering(h):
+    h.cutoffs[0] = h.cutoffs[1] = 40.0
+
+
+def rename(h):
+    h.name = b"renamed"
+
+
+@pytest.mark.parametrize("edit", [scale_matches, shift_deletions, shift_tau,
+                                  raise_gathering, rename],
+                         ids=lambda f: f.__name__)
+def test_model_edited_in_place_is_configured_anew(edit):
+    """After an in-place edit of a searched model (the second), the same
+    engine reports the rows of a fresh engine and of the sequential
+    ``Pipeline.search_hmm``; the gathering cutoff is searched with
+    ``bit_cutoffs="gathering"``, and a renamed model's hits carry its new
+    name."""
+    models, _, _, _, block = planted_apart()
+    options = {}
+    if edit is raise_gathering:
+        options["bit_cutoffs"] = "gathering"
+        for h in models:
+            h.cutoffs.gathering = (10.0, 10.0)
+    eng = pyhmmer_tpu_torch.SearchEngine(block.alphabet, device="cpu",
+                                         **options)
+    before = [(th.query_name, rows(th)) for th in eng.search(models, block)]
+    edit(models[1])
+    got = [(th.query_name, rows(th), th.Z)
+           for th in eng.search(models, block)]
+    fresh = [(th.query_name, rows(th), th.Z)
+             for th in pyhmmer_tpu_torch.SearchEngine(
+                 block.alphabet, device="cpu", **options).search(models,
+                                                                 block)]
+    want = [(th.query_name, rows(th), th.Z) for th in (
+        Pipeline(block.alphabet, **options).search_hmm(h, block)
+        for h in models)]
+    assert got == fresh == want
+    assert got[0][:2] == before[0]
+    assert got[1][:2] != before[1]
+    if edit is rename:
+        assert got[1][0] == b"renamed"
+
+
+def test_unedited_search_packs_and_configures_nothing(monkeypatch):
+    """A second search of an unchanged block with unchanged models packs
+    no bucket and configures no profile."""
+    models, _, _, _, block = planted_apart()
+    eng = pyhmmer_tpu_torch.SearchEngine(block.alphabet, device="cpu")
+    first = [(rows(th), th.Z) for th in eng.search(models, block)]
+    built = count_bucket_builds(monkeypatch)
+    configured = count_configures(monkeypatch)
+    assert [(rows(th), th.Z) for th in eng.search(models, block)] == first
+    assert built == [] and configured == []
+
+
+def test_streamed_hmmsearch_configures_each_query_once(monkeypatch):
+    """A streamed hmmsearch (one engine over several blocks) configures
+    each query once, its multihit and unihit profiles, for the whole
+    file; its rows are those of the block's search."""
+    models, _, _, _, block = planted_apart()
+    want = [rows(th) for th in pyhmmer_tpu_torch.hmmsearch(
+        models, block, device="cpu")]
+    fasta = io.StringIO()
+    for s in block:
+        t = s.textize()
+        fasta.write(f">{t.name.decode()}\n{t.sequence}\n")
+    fasta.seek(0)
+    built = count_bucket_builds(monkeypatch)
+    configured = count_configures(monkeypatch)
+    with SequenceFile(fasta, digital=True, alphabet=block.alphabet) as sf:
+        got = [rows(th) for th in pyhmmer_tpu_torch.hmmsearch(
+            models, sf, device="cpu", block_residues=20_000)]
+    assert got == want
+    assert len(built) >= 2
+    assert sorted(configured) == sorted(h.name for h in models for _ in
+                                        range(2))
+
+
 def test_cuda_device_raises_without_cuda(workload, monkeypatch):
     hmms, targets, _, _ = workload
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -363,7 +363,8 @@ COPIES = {
     "plan7/hmmfile": ((), ()),
     "plan7/pressed": ((), ()),
     "easel/ssi": ((), ()),
-    "daemon": ((), ()),
+    # the server's sequence queries built on the device it is given
+    "daemon": ((), ("Server.__init__", "Server._run_query")),
     "plan7/views": ((), ()),
     "plan7/ensemble": ((), ()),
 }
