@@ -1,0 +1,8 @@
+"""Comparisons (queries x targets) of all the calls over their summed
+walls."""
+
+from hmmbench import readers
+
+
+def read(run):
+    return readers.rate(run)
