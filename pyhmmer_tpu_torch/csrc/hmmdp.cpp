@@ -1214,11 +1214,27 @@ extern "C" void hmmdp_phase_reset() {
 namespace {
 
 #include <time.h>
-inline double now_s() {
+inline double clock_s(clockid_t clock) {
     struct timespec ts;
-    clock_gettime(CLOCK_MONOTONIC, &ts);
+    clock_gettime(clock, &ts);
     return ts.tv_sec + 1e-9 * ts.tv_nsec;
 }
+inline double now_s() { return clock_s(CLOCK_MONOTONIC); }
+
+// Per-thread wall and CPU seconds inside the calls the engine's pool
+// makes (hmmdp_domaindef, hmmdp_viterbi, hmmdp_bias_filter_idx), read by
+// ops/native.py call_times.  Taken here, where ctypes has released the
+// GIL, so the clock reads hold no GIL and the wait to retake it on
+// return stays out.  The CPU interval holds the wall interval.
+thread_local double t_call_s[2] = {0.0, 0.0};
+struct CallTimer {
+    double c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
+    double w0 = now_s();
+    ~CallTimer() {
+        t_call_s[0] += now_s() - w0;
+        t_call_s[1] += clock_s(CLOCK_THREAD_CPUTIME_ID) - c0;
+    }
+};
 
 constexpr double RT1_DEF = 0.25;
 
@@ -1552,6 +1568,7 @@ int32_t hmmdp_domaindef(
     const double* ext_rows,                      // [3*(L+1)] or NULL
     double ext_fwdsc, double audit_eps) {
 
+    CallTimer call_timer;
     const int W = M + 1;
     Specials sm; sm.config(L, true);    // multihit, full-length model
     Specials su; su.config(L, false);   // unihit, full-length model
@@ -2082,6 +2099,12 @@ int32_t hmmdp_domaindef(
 // (ops/native.py probes it so a stale .so forces a rebuild)
 int32_t hmmdp_has_ext_rows() { return 1; }
 
+// This thread's sums of CallTimer: out2 = {wall, cpu}.
+void hmmdp_call_times(double* out2) {
+    out2[0] = t_call_s[0];
+    out2[1] = t_call_s[1];
+}
+
 int64_t hmmdp_marginal_count() {
     return g_ext_marginal.load(std::memory_order_relaxed);
 }
@@ -2229,6 +2252,7 @@ void hmmdp_bias_filter_batch(const uint8_t* codes, const int64_t* lens,
 void hmmdp_bias_filter_idx(const uint8_t* codes, const int64_t* lens,
                            const int64_t* rows, int32_t nrows,
                            int32_t Lmax, const double* odds1, double* out) {
+    CallTimer call_timer;
     for (int32_t j = 0; j < nrows; j++) {
         int64_t r = rows[j];
         out[j] = hmmdp_bias_filter(codes + r * Lmax,
@@ -2252,6 +2276,7 @@ double hmmdp_viterbi(
     const double* msc, const double* isc,
     const double* xE, const double* xN, const double* xJ, const double* xC,
     int32_t M, int32_t Kp) {
+    CallTimer call_timer;
     const int W = M + 1;
     Arena::Mark amark = g_arena.mark();
     double* mrow = g_arena.alloc(W);

@@ -31,6 +31,7 @@ copy.
 from __future__ import annotations
 
 import concurrent.futures as _cf
+import contextlib
 import hashlib
 import math
 import os
@@ -117,6 +118,37 @@ class _Buckets:
                 self.buckets.append((idx.astype(np.int64), codes, blens,
                                      B.SeqDevice(codes, blens, fill,
                                                  device)))
+
+
+@contextlib.contextmanager
+def span(tmark: dict, name: str):
+    """One span of a search: a ``record_function("engine.<name>")`` range
+    in the profiler's trace (on the kernels' clock) whose
+    ``perf_counter`` seconds add up in ``tmark["<name>_s"]``.  The clock
+    is read outside the range, so the span holds it and the range's calls
+    into torch, which may wait to retake the GIL."""
+    key = name + "_s"
+    t = time.perf_counter()
+    try:
+        with torch.profiler.record_function("engine." + name):
+            yield
+    finally:
+        tmark[key] = tmark.get(key, 0.0) + time.perf_counter() - t
+
+
+def _pool_job(fn, *args):
+    """``fn(*args)`` on a pool worker, returned with the job's wall and
+    thread CPU seconds and those spent inside the native library's C
+    calls (``ops/native.py:call_times``), each CPU interval inside its
+    wall interval."""
+    w0 = time.perf_counter()
+    c0 = time.thread_time()
+    n0 = _native.call_times()
+    out = fn(*args)
+    n1 = _native.call_times()
+    c1 = time.thread_time()
+    w1 = time.perf_counter()
+    return out, (w1 - w0, c1 - c0, n1[0] - n0[0], n1[1] - n0[1])
 
 
 def block_key(block: DigitalSequenceBlock) -> bytes:
@@ -303,6 +335,9 @@ class SearchEngine:
         self._model_cache: dict = {}
         self._buckets_cache: Optional[tuple] = None
         self._streams: List[torch.cuda.Stream] = []
+        #: the last search's stage marks (seconds since set-up ended),
+        #: spans (``<name>_s``, :func:`span`), pool and native counters,
+        #: and HMMER's pipeline statistics summed over its queries
         self.last_timing: dict = {}
 
     def _side_stream(self, k: int) -> "torch.cuda.Stream":
@@ -345,47 +380,54 @@ class SearchEngine:
                callback=None) -> List[TopHits]:
         """Run hmmsearch for every query HMM; returns one TopHits each,
         in input order, identical to the sequential pipeline's output."""
-        t_setup = time.time()
-        queries = list(queries)
-        if any(len(s) > MAX_TARGET_LENGTH for s in targets):
-            raise ValueError(
-                f"sequence length over comparison pipeline limit "
-                f"({MAX_TARGET_LENGTH})")
-        # the block is mutable (its items and their residue arrays): reuse
-        # its buckets only while it holds the residues they were packed from
-        bkey = (id(targets), len(targets), block_key(targets))
-        if self._buckets_cache is not None and self._buckets_cache[0] == bkey:
-            buckets = self._buckets_cache[2]
-        else:
-            buckets = _Buckets(targets, self.device)
-            # hold a reference to the block so id() stays unique
-            self._buckets_cache = (bkey, targets, buckets)
-        results: List[Optional[TopHits]] = [None] * len(queries)
+        #: per-search stage marks (``perf_counter`` seconds since the
+        #: stages start), spans (``<name>_s``: :func:`span`) and counters
+        tmark: dict = {"submit_s": 0.0, "s1.bias_wait_s": 0.0,
+                       "pool_jobs": 0, "pool_native_s": 0.0,
+                       "pool_native_cpu_s": 0.0, "pool_py_s": 0.0}
+        with span(tmark, "setup"):
+            queries = list(queries)
+            if any(len(s) > MAX_TARGET_LENGTH for s in targets):
+                raise ValueError(
+                    f"sequence length over comparison pipeline limit "
+                    f"({MAX_TARGET_LENGTH})")
+            with span(tmark, "setup.pack"):
+                # the block is mutable (its items and their residue
+                # arrays): reuse its buckets only while it holds the
+                # residues they were packed from
+                bkey = (id(targets), len(targets), block_key(targets))
+                if (self._buckets_cache is not None
+                        and self._buckets_cache[0] == bkey):
+                    buckets = self._buckets_cache[2]
+                else:
+                    buckets = _Buckets(targets, self.device)
+                    # hold a reference to the block so id() stays unique
+                    self._buckets_cache = (bkey, targets, buckets)
+            results: List[Optional[TopHits]] = [None] * len(queries)
 
-        for hmm in queries:
-            if hmm.alphabet != self.alphabet:
-                raise ValueError("alphabet mismatch between query and engine")
-        states: List[_ChunkState] = []
-        for Mp, qidx in sorted(group_queries(queries).items()):
-            for c0 in range(0, len(qidx), P_MAX):
-                states.append(_ChunkState(self, queries,
-                                          qidx[c0: c0 + P_MAX], Mp))
+            for hmm in queries:
+                if hmm.alphabet != self.alphabet:
+                    raise ValueError(
+                        "alphabet mismatch between query and engine")
+            states: List[_ChunkState] = []
+            with span(tmark, "setup.profiles"):
+                for Mp, qidx in sorted(group_queries(queries).items()):
+                    for c0 in range(0, len(qidx), P_MAX):
+                        states.append(_ChunkState(self, queries,
+                                                  qidx[c0: c0 + P_MAX], Mp))
 
-        # every target of the block counts into Z once, empty ones too
-        nres = sum(len(s) for s in targets)
-        for st in states:
-            for pli in st.pipelines:
-                pli.nseqs += len(targets)
-                pli.nres += nres
+            # every target of the block counts into Z once, empty ones too
+            nres = sum(len(s) for s in targets)
+            for st in states:
+                for pli in st.pipelines:
+                    pli.nseqs += len(targets)
+                    pli.nres += nres
 
-        t0 = time.time()
-        # profile configuration, packing and upload before the stages
-        tmark: dict = {"setup_s": t0 - t_setup}
+        t0 = time.perf_counter()
 
         def mark(name):
-            tmark[name] = time.time() - t0
+            tmark[name] = time.perf_counter() - t0
         native_ok = _native.available()
-        marg0 = _native.marginal_count()
         own_executor = native_ok and self.shared_executor is None
         if not native_ok:
             executor = None
@@ -393,7 +435,30 @@ class SearchEngine:
             executor = _cf.ThreadPoolExecutor(pool_size())
         else:
             executor = self.shared_executor
-        pending = []   # (job tuple, future | None, speculative)
+        # the pool's jobs' summed walls (``pool_result``), and the native
+        # phase timers as the stages start
+        pool_wall = 0.0
+        phase0 = _native.phase_times()
+
+        def to_pool(fn, *args):
+            """Hand ``fn(*args)`` to the pool (:func:`_pool_job`)."""
+            t = time.perf_counter()
+            fut = executor.submit(_pool_job, fn, *args)
+            tmark["submit_s"] += time.perf_counter() - t
+            return fut
+
+        def pool_result(fut):
+            """A pool job's result; its seconds go to the counters."""
+            nonlocal pool_wall
+            out, (wall, cpu, nwall, ncpu) = fut.result()
+            tmark["pool_jobs"] += 1
+            tmark["pool_native_s"] += nwall
+            tmark["pool_native_cpu_s"] += ncpu
+            tmark["pool_py_s"] += cpu - ncpu
+            pool_wall += wall
+            return out
+
+        pending = []   # (job tuple, future | None)
 
         def run_domaindef(job, ext=None):
             """Worker body: optional native Viterbi F2 gate (host-routed
@@ -473,12 +538,12 @@ class SearchEngine:
                     else:
                         key = "n_rows_back"
                     tmark[key] = tmark.get(key, 0) + 1
-                    pending.append((job, executor.submit(run_domaindef, job,
-                                                         ext), False))
+                    pending.append((job, to_pool(run_domaindef, job, ext)))
             rows_launched.clear()
 
         def submit(ci, bi, pi, pass_row, fcols, idx, vit_min_row=None,
-                   spec=False, defer=False):
+                   defer=False):
+            t_submit = time.perf_counter()
             st = states[ci]
             pli = st.pipelines[pi]
             c = ctx[(ci, bi)]
@@ -502,9 +567,10 @@ class SearchEngine:
                 if defer:
                     rows_pending.setdefault((ci, bi), []).append(job)
                     continue
-                fut = (executor.submit(run_domaindef, job)
+                fut = (executor.submit(_pool_job, run_domaindef, job)
                        if executor is not None else None)
-                pending.append((job, fut, spec))
+                pending.append((job, fut))
+            tmark["submit_s"] += time.perf_counter() - t_submit
 
         # -- stage 1 (device): MSV + fused bias for every chunk x bucket --
         # on a CUDA device every long-bucket launch (a few warps, a long
@@ -589,197 +655,219 @@ class SearchEngine:
             if not cand.any():
                 return
             args = (st, codes, lengths, cand, nullsc, usc)
-            fut = (executor.submit(bias_stage, *args)
+            fut = (to_pool(bias_stage, *args)
                    if executor is not None else None)
             s1_host_jobs.append((int(cand.sum()), ci, bi, args, fut))
 
         arrs = _fetch_all(s1_parts)
         mark("s1_fetched")
-        for (ci, bi, off) in s1_pairs:
-            gate_pair(ci, bi, *arrs[off: off + 3])
+        with span(tmark, "s1_host"):
+            for (ci, bi, off) in s1_pairs:
+                gate_pair(ci, bi, *arrs[off: off + 3])
 
-        # gate + route in descending survivor count, enqueueing each
-        # job's Forward kernel as soon as it is routed
-        s1_host_jobs.sort(key=lambda j: -j[0])
-        s2_jobs = []
-        s2_parts = []
-        for npairs1, ci, bi, args, fut in s1_host_jobs:
-            st = states[ci]
-            idx, codes, lengths, dev = buckets.buckets[bi]
-            filtersc, P1b, pass2 = (fut.result() if fut is not None
-                                    else bias_stage(*args))
-            nullsc = args[4]
-            for pi, pli in enumerate(st.pipelines):
-                pli.n_past_bias += int(pass2[pi].sum())
-            if not pass2.any():
-                continue
-            bsel = np.where(pass2.any(axis=0))[0]
-            ctx[(ci, bi)] = dict(filtersc=filtersc, nullsc=nullsc,
-                                 pass2=pass2, P1b=P1b, bsel=bsel)
-            # sparse jobs skip the device cascade: native Viterbi gate +
-            # domaindef on the host pool
-            npairs = int(pass2.sum())
-            Lmax_b = codes.shape[1]
-            if native_ok and npairs <= max(
-                    HOST_MIN_PAIRS,
-                    int(HOST_PAIRS_PER_ROW * Lmax_b * st.pb.P)):
+            # gate + route in descending survivor count, enqueueing each
+            # job's Forward kernel as soon as it is routed
+            s1_host_jobs.sort(key=lambda j: -j[0])
+            s2_jobs = []
+            s2_parts = []
+            for npairs1, ci, bi, args, fut in s1_host_jobs:
+                st = states[ci]
+                idx, codes, lengths, dev = buckets.buckets[bi]
+                if fut is None:
+                    filtersc, P1b, pass2 = bias_stage(*args)
+                else:
+                    with span(tmark, "s1.bias_wait"):
+                        filtersc, P1b, pass2 = pool_result(fut)
+                nullsc = args[4]
                 for pi, pli in enumerate(st.pipelines):
-                    cols = np.where(pass2[pi])[0]
-                    if len(cols) == 0:
-                        continue
-                    ev = st.ev[pi]
-                    skip = P1b[pi, cols] <= pli.F2 * F2_SKIP_SLACK
-                    pli.n_past_vit += int(skip.sum())
-                    vmin = (filtersc[pi, cols]
-                            + LOG2 * (ev[2] - np.log(pli.F2) / ev[3]))
-                    submit(ci, bi, pi, np.ones(len(cols), dtype=bool),
-                           cols, idx, np.where(skip, -np.inf, vmin))
-                continue
-            # speculative host routing of near-certain hits: such a pair
-            # skips Viterbi legitimately and the device Forward is only a
-            # prefilter, so starting its exact job now changes nothing
-            if native_ok:
-                spec = pass2 & (P1b <= np.minimum(
-                    st.F2 * F2_SKIP_SLACK, SPECULATE_P1B))
-                if spec.any():
-                    c = ctx[(ci, bi)]
-                    tmark["nspec"] = tmark.get("nspec", 0) + int(spec.sum())
+                    pli.n_past_bias += int(pass2[pi].sum())
+                if not pass2.any():
+                    continue
+                bsel = np.where(pass2.any(axis=0))[0]
+                ctx[(ci, bi)] = dict(filtersc=filtersc, nullsc=nullsc,
+                                     pass2=pass2, P1b=P1b, bsel=bsel)
+                # sparse jobs skip the device cascade: native Viterbi gate +
+                # domaindef on the host pool
+                npairs = int(pass2.sum())
+                Lmax_b = codes.shape[1]
+                if native_ok and npairs <= max(
+                        HOST_MIN_PAIRS,
+                        int(HOST_PAIRS_PER_ROW * Lmax_b * st.pb.P)):
                     for pi, pli in enumerate(st.pipelines):
-                        cols = np.where(spec[pi])[0]
+                        cols = np.where(pass2[pi])[0]
                         if len(cols) == 0:
                             continue
-                        pli.n_past_vit += len(cols)
+                        ev = st.ev[pi]
+                        skip = P1b[pi, cols] <= pli.F2 * F2_SKIP_SLACK
+                        pli.n_past_vit += int(skip.sum())
+                        vmin = (filtersc[pi, cols]
+                                + LOG2 * (ev[2] - np.log(pli.F2) / ev[3]))
                         submit(ci, bi, pi, np.ones(len(cols), dtype=bool),
-                               cols, idx, spec=True)
-                    pass2 = pass2 & ~spec
-                    c["pass2"] = pass2
-                    if not pass2.any():
-                        continue
-                    c["bsel"] = np.where(pass2.any(axis=0))[0]
-            c = ctx[(ci, bi)]
-            s2_parts.append(fwd_cuda.forward(st.pb, dev, *self._survivors(
-                c["bsel"], c["pass2"][:, c["bsel"]])))
-            s2_jobs.append((ci, bi))
+                               cols, idx, np.where(skip, -np.inf, vmin))
+                    continue
+                # speculative host routing of near-certain hits: such a pair
+                # skips Viterbi legitimately and the device Forward is only a
+                # prefilter, so starting its exact job now changes nothing
+                if native_ok:
+                    spec = pass2 & (P1b <= np.minimum(
+                        st.F2 * F2_SKIP_SLACK, SPECULATE_P1B))
+                    if spec.any():
+                        c = ctx[(ci, bi)]
+                        for pi, pli in enumerate(st.pipelines):
+                            cols = np.where(spec[pi])[0]
+                            if len(cols) == 0:
+                                continue
+                            pli.n_past_vit += len(cols)
+                            submit(ci, bi, pi,
+                                   np.ones(len(cols), dtype=bool), cols, idx)
+                        pass2 = pass2 & ~spec
+                        c["pass2"] = pass2
+                        if not pass2.any():
+                            continue
+                        c["bsel"] = np.where(pass2.any(axis=0))[0]
+                c = ctx[(ci, bi)]
+                s2_parts.append(fwd_cuda.forward(st.pb, dev, *self._survivors(
+                    c["bsel"], c["pass2"][:, c["bsel"]])))
+                s2_jobs.append((ci, bi))
         mark("s1_host_done")
         tmark["n_s2_jobs"] = len(s2_jobs)
-        tmark["s2_lanes"] = sum(len(ctx[j]["bsel"]) for j in s2_jobs)
 
         # -- stage 2 (host): Forward gate, Viterbi routing --
         s3_jobs = []
         s3_parts = []
         s2_np = _fetch_all(s2_parts)
         mark("s2_fetched")
-        for (cj, bi), fsc_raw in zip(s2_jobs, s2_np):
-            st = states[cj]
-            c = ctx[(cj, bi)]
-            bsel = c["bsel"]
-            c["fcols"] = bsel
-            fsc = fsc_raw.astype(np.float64)
-            P3 = exp_surv((fsc - c["filtersc"][:, bsel]) / LOG2,
-                          st.ev[:, 4:5], st.ev[:, 5:6])
-            # 1.5x device-side margin: borderline targets still reach the
-            # exact float64 re-check, which applies F3 * F3_SLACK
-            pass_fwd = c["pass2"][:, bsel] & (P3 <= st.F3 * F3_SLACK * 1.5)
-            skip_vit = c["P1b"][:, bsel] <= st.F2 * F2_SKIP_SLACK
-            need_vit = pass_fwd & ~skip_vit
-            c["pass_fwd"] = pass_fwd
-            c["need_vit"] = need_vit
-            for pi, pli in enumerate(st.pipelines):
-                pli.n_past_vit += int((c["pass2"][pi, bsel]
-                                       & skip_vit[pi]).sum())
-            if need_vit.any():
-                vcols = np.where(need_vit.any(axis=0))[0]
-                c["vcols"] = vcols
-                s3_parts.append(vit_cuda.viterbi(
-                    st.pb, buckets.buckets[bi][3],
-                    *self._survivors(bsel[vcols], need_vit[:, vcols])))
-                s3_jobs.append((cj, bi))
-            idx = buckets.buckets[bi][0]
-            for pi in range(st.Preal):
-                submit(cj, bi, pi, pass_fwd[pi] & ~need_vit[pi], bsel, idx,
-                       defer=True)
-        # wave 1 of the rows stage: the survivors that skip Viterbi
-        launch_rows()
+        with span(tmark, "s2_host"):
+            for (cj, bi), fsc_raw in zip(s2_jobs, s2_np):
+                st = states[cj]
+                c = ctx[(cj, bi)]
+                bsel = c["bsel"]
+                c["fcols"] = bsel
+                fsc = fsc_raw.astype(np.float64)
+                P3 = exp_surv((fsc - c["filtersc"][:, bsel]) / LOG2,
+                              st.ev[:, 4:5], st.ev[:, 5:6])
+                # 1.5x device-side margin: borderline targets still reach the
+                # exact float64 re-check, which applies F3 * F3_SLACK
+                pass_fwd = c["pass2"][:, bsel] & (P3 <= st.F3 * F3_SLACK * 1.5)
+                skip_vit = c["P1b"][:, bsel] <= st.F2 * F2_SKIP_SLACK
+                need_vit = pass_fwd & ~skip_vit
+                c["pass_fwd"] = pass_fwd
+                c["need_vit"] = need_vit
+                for pi, pli in enumerate(st.pipelines):
+                    pli.n_past_vit += int((c["pass2"][pi, bsel]
+                                           & skip_vit[pi]).sum())
+                if need_vit.any():
+                    vcols = np.where(need_vit.any(axis=0))[0]
+                    c["vcols"] = vcols
+                    s3_parts.append(vit_cuda.viterbi(
+                        st.pb, buckets.buckets[bi][3],
+                        *self._survivors(bsel[vcols], need_vit[:, vcols])))
+                    s3_jobs.append((cj, bi))
+                idx = buckets.buckets[bi][0]
+                for pi in range(st.Preal):
+                    submit(cj, bi, pi, pass_fwd[pi] & ~need_vit[pi], bsel, idx,
+                           defer=True)
+            # wave 1 of the rows stage: the survivors that skip Viterbi
+            launch_rows()
         mark("s2_done")
         tmark["n_s3_jobs"] = len(s3_jobs)
         s3_np = _fetch_all(s3_parts)
         mark("s3_fetched")
-
         # -- stage 3 (host): Viterbi gate on the leftover columns --
-        for (cj, bi), vsc_raw in zip(s3_jobs, s3_np):
-            st = states[cj]
-            c = ctx[(cj, bi)]
-            bsel, vcols = c["bsel"], c["vcols"]
-            vsc = vsc_raw.astype(np.float64)
-            P2 = gumbel_surv(
-                (vsc - c["filtersc"][:, bsel][:, vcols]) / LOG2,
-                st.ev[:, 2:3], st.ev[:, 3:4])
-            keep = P2 <= st.F2
-            c["pass_fwd"][:, vcols] &= (~c["need_vit"][:, vcols]) | keep
-            for pi, pli in enumerate(st.pipelines):
-                pli.n_past_vit += int((c["need_vit"][pi, vcols]
-                                       & keep[pi]).sum())
-            idx = buckets.buckets[bi][0]
-            survived = c["pass_fwd"][:, vcols] & c["need_vit"][:, vcols]
-            for pi in range(st.Preal):
-                submit(cj, bi, pi, survived[pi], bsel[vcols], idx,
-                       defer=True)
-        # wave 2 (the Viterbi survivors), then the one rows fetch
-        launch_rows()
+        with span(tmark, "s3_host"):
+            for (cj, bi), vsc_raw in zip(s3_jobs, s3_np):
+                st = states[cj]
+                c = ctx[(cj, bi)]
+                bsel, vcols = c["bsel"], c["vcols"]
+                vsc = vsc_raw.astype(np.float64)
+                P2 = gumbel_surv(
+                    (vsc - c["filtersc"][:, bsel][:, vcols]) / LOG2,
+                    st.ev[:, 2:3], st.ev[:, 3:4])
+                keep = P2 <= st.F2
+                c["pass_fwd"][:, vcols] &= (~c["need_vit"][:, vcols]) | keep
+                for pi, pli in enumerate(st.pipelines):
+                    pli.n_past_vit += int((c["need_vit"][pi, vcols]
+                                           & keep[pi]).sum())
+                idx = buckets.buckets[bi][0]
+                survived = c["pass_fwd"][:, vcols] & c["need_vit"][:, vcols]
+                for pi in range(st.Preal):
+                    submit(cj, bi, pi, survived[pi], bsel[vcols], idx,
+                           defer=True)
+            # wave 2 (the Viterbi survivors), then the one rows fetch
+            launch_rows()
         mark("s3_host_done")
-        collect_rows()
+        with span(tmark, "rows"):
+            collect_rows()
         mark("rows_done")
 
         # ---- collect: serial append of worker-built hits (deterministic
         # insertion order = deterministic tie-breaking in sort) ----
-        for job, fut, spec_job in pending:
-            (ci, bi, pi, tgt, b, seed, fwd_min, filtersc_b, nullsc_b,
-             vit_min) = job
-            st = states[ci]
-            pli = st.pipelines[pi]
-            vit_gated_here = vit_min is not None and np.isfinite(vit_min)
-            out = fut.result() if fut is not None else None
-            if spec_job and out is not None:
-                key = "nspec_hit" if out[0] == "hit" else "nspec_gated"
-                tmark[key] = tmark.get(key, 0) + 1
-            if out is None:
-                # pure-Python fallback (no native library)
-                sq = targets[tgt]
-                Lb = int(buckets.buckets[bi][2][b])
-                pli.background.set_length(Lb)
-                st.profs[pi].reconfig_length(Lb)
-                st.profs_uni[pi].reconfig_length(Lb)
-                if vit_gated_here:
-                    v = refops.viterbi_score(st.profs[pi], sq.sequence)
-                    if v < vit_min:
+        with span(tmark, "collect"):
+            for job, fut in pending:
+                (ci, bi, pi, tgt, b, seed, fwd_min, filtersc_b, nullsc_b,
+                 vit_min) = job
+                st = states[ci]
+                pli = st.pipelines[pi]
+                vit_gated_here = vit_min is not None and np.isfinite(vit_min)
+                out = pool_result(fut) if fut is not None else None
+                if out is None:
+                    # pure-Python fallback (no native library)
+                    sq = targets[tgt]
+                    Lb = int(buckets.buckets[bi][2][b])
+                    pli.background.set_length(Lb)
+                    st.profs[pi].reconfig_length(Lb)
+                    st.profs_uni[pi].reconfig_length(Lb)
+                    if vit_gated_here:
+                        v = refops.viterbi_score(st.profs[pi], sq.sequence)
+                        if v < vit_min:
+                            continue
+                        pli.n_past_vit += 1
+                    fwd = refops.forward(st.profs[pi], sq.sequence)
+                    Px = float(exp_surv((fwd.score - filtersc_b) / LOG2,
+                                        st.ev[pi, 4], st.ev[pi, 5]))
+                    if Px > pli.F3 * F3_SLACK:
                         continue
+                    pli.n_past_fwd += 1
+                    pli._finish_target(st.profs[pi], st.profs_uni[pi], sq,
+                                       st.tophits[pi], fwd, nullsc_b)
+                    continue
+                if out[0] == "gated_vit":
+                    continue
+                if vit_gated_here:
                     pli.n_past_vit += 1
-                fwd = refops.forward(st.profs[pi], sq.sequence)
-                Px = float(exp_surv((fwd.score - filtersc_b) / LOG2,
-                                    st.ev[pi, 4], st.ev[pi, 5]))
-                if Px > pli.F3 * F3_SLACK:
+                if out[0] == "gated":
                     continue
                 pli.n_past_fwd += 1
-                pli._finish_target(st.profs[pi], st.profs_uni[pi], sq,
-                                   st.tophits[pi], fwd, nullsc_b)
-                continue
-            if out[0] == "gated_vit":
-                continue
-            if vit_gated_here:
-                pli.n_past_vit += 1
-            if out[0] == "gated":
-                continue
-            pli.n_past_fwd += 1
-            hit = out[1]
-            if hit is not None:
-                st.tophits[pi].hits.append(hit)
-        if own_executor:
-            executor.shutdown()
+                hit = out[1]
+                if hit is not None:
+                    st.tophits[pi].hits.append(hit)
+            if own_executor:
+                executor.shutdown()
         mark("collect_done")
-        tmark["npending"] = len(pending)
-        tmark["n_marginal"] = _native.marginal_count() - marg0
-        #: per-search stage marks (seconds since search start) and counts
-        self.last_timing = dict(tmark)
+        # the pool: its workers' seconds over the stages (what its jobs
+        # leave of them is its idle time), and its jobs' walls split
+        # into native calls (``pool_native_cpu_s`` of them on a core),
+        # Python on a core, and the rest: waiting for the GIL or a core
+        if executor is not None:
+            tmark["pool_worker_s"] = (executor._max_workers
+                                      * tmark["collect_done"])
+        else:
+            tmark["pool_worker_s"] = 0.0
+        tmark["pool_py_wait_s"] = (pool_wall - tmark["pool_native_s"]
+                                   - tmark["pool_py_s"])
+        # the split of ``pool_native_s`` by domaindef phase (process-wide
+        # timers: engines sharing one executor mix their deltas)
+        phase1 = _native.phase_times()
+        tmark["dd_phase_s"] = ([0.0] * len(_native.PHASE_LABELS)
+                               if phase0 is None
+                               else (phase1 - phase0).tolist())
+        # HMMER's pipeline statistics, summed over the search's queries
+        plis = [pli for st in states for pli in st.pipelines]
+        tmark["n_seqs_searched"] = sum(pli.nseqs for pli in plis)
+        for key in ("n_past_msv", "n_past_bias", "n_past_vit",
+                    "n_past_fwd"):
+            tmark[key] = sum(getattr(pli, key) for pli in plis)
+        self.last_timing = tmark
 
         # ---- finalize ----
         for st in states:

@@ -80,7 +80,8 @@ def _load_checked() -> ctypes.CDLL:
     lib.hmmdp_core_new
     lib.hmmdp_bias_filter_idx
     lib.hmmdp_phase_get
-    lib.hmmdp_has_ext_rows   # newest ABI marker; AttributeError if stale
+    lib.hmmdp_has_ext_rows
+    lib.hmmdp_call_times     # newest ABI marker; AttributeError if stale
     return lib
 
 
@@ -222,6 +223,10 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.hmmdp_viterbi.restype = ctypes.c_double
     lib.hmmdp_phase_get.argtypes = [_D]
     lib.hmmdp_phase_get.restype = None
+    # called holding the GIL (a Python-API prototype): a read of two
+    # thread-local sums, where dropping and retaking it would cost more
+    lib.call_times = ctypes.PYFUNCTYPE(None, ctypes.POINTER(
+        ctypes.c_double))(("hmmdp_call_times", lib))
     lib.hmmdp_marginal_count.argtypes = []
     lib.hmmdp_marginal_count.restype = ctypes.c_int64
     lib.hmmdp_forward_flogsum.argtypes = [
@@ -691,6 +696,19 @@ def bias_filter_rows(odds1: np.ndarray, codes: np.ndarray,
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def call_times() -> tuple:
+    """``(wall, cpu)``: this thread's seconds inside ``hmmdp_domaindef``,
+    ``hmmdp_viterbi`` and ``hmmdp_bias_filter_idx`` since it started,
+    timed by the library with the GIL released (the wait to retake it on
+    return left out); ``(0.0, 0.0)`` without the library."""
+    lib = get_lib()
+    if lib is None:
+        return 0.0, 0.0
+    out = (ctypes.c_double * 2)()
+    lib.call_times(out)
+    return out[0], out[1]
 
 
 #: phase labels for the hmmdp_phase_s diagnostic accumulators
