@@ -1543,7 +1543,7 @@ extern "C" {
 // against ``audit_eps`` -- a comparison landing within the epsilon of
 // its threshold returns -3 so the caller can redo the target with the
 // exact host parsers (the f32-prefilter + f64-recheck margin pattern).
-int32_t hmmdp_domaindef(
+static int32_t domaindef_core(
     const uint8_t* dsq, int32_t L,
     const double* tBM, const double* tMM, const double* tIM,
     const double* tDM, const double* tMD, const double* tDD,
@@ -1568,7 +1568,6 @@ int32_t hmmdp_domaindef(
     const double* ext_rows,                      // [3*(L+1)] or NULL
     double ext_fwdsc, double audit_eps) {
 
-    CallTimer call_timer;
     const int W = M + 1;
     Specials sm; sm.config(L, true);    // multihit, full-length model
     Specials su; su.config(L, false);   // unihit, full-length model
@@ -2095,6 +2094,32 @@ int32_t hmmdp_domaindef(
     return fail ? -1 : ndom;
 }
 
+int32_t hmmdp_domaindef(
+    const uint8_t* dsq, int32_t L,
+    const double* tBM, const double* tMM, const double* tIM,
+    const double* tDM, const double* tMD, const double* tDD,
+    const double* tMI, const double* tII,
+    const double* msc, const double* isc,
+    int32_t M, int32_t K, int32_t Kp,
+    const double* odds_m, const double* odds_i,
+    const double* degw, const uint8_t* deg_one,
+    int32_t do_null2, uint64_t seed, int32_t nsamples,
+    double rt1, double rt2, double rt3, double fwd_min,
+    double* out_scalars, double* n2sc,
+    int32_t* dom_int, double* dom_dbl, int32_t max_dom,
+    int8_t* tr_st, int32_t* tr_k, int32_t* tr_i, double* tr_pp,
+    int64_t* tr_off, int64_t max_tr,
+    const void* core_handle, const double* ext_rows,
+    double ext_fwdsc, double audit_eps) {
+    CallTimer call_timer;
+    return domaindef_core(
+        dsq, L, tBM, tMM, tIM, tDM, tMD, tDD, tMI, tII, msc, isc, M, K, Kp,
+        odds_m, odds_i, degw, deg_one, do_null2, seed, nsamples,
+        rt1, rt2, rt3, fwd_min, out_scalars, n2sc, dom_int, dom_dbl,
+        max_dom, tr_st, tr_k, tr_i, tr_pp, tr_off, max_tr, core_handle,
+        ext_rows, ext_fwdsc, audit_eps);
+}
+
 // ABI marker: present iff hmmdp_domaindef takes the ext_rows tail
 // (ops/native.py probes it so a stale .so forces a rebuild)
 int32_t hmmdp_has_ext_rows() { return 1; }
@@ -2268,7 +2293,7 @@ extern "C" {
 // semantics matching ops/reference.py viterbi_score).  Score-only: used
 // as the host-side F2 gate for survivor pairs too sparse to justify a
 // batched device Viterbi call.
-double hmmdp_viterbi(
+static double viterbi_core(
     const uint8_t* dsq, int32_t L,
     const double* tBM, const double* tMM, const double* tIM,
     const double* tDM, const double* tMD, const double* tDD,
@@ -2276,7 +2301,6 @@ double hmmdp_viterbi(
     const double* msc, const double* isc,
     const double* xE, const double* xN, const double* xJ, const double* xC,
     int32_t M, int32_t Kp) {
-    CallTimer call_timer;
     const int W = M + 1;
     Arena::Mark amark = g_arena.mark();
     double* mrow = g_arena.alloc(W);
@@ -2315,6 +2339,246 @@ double hmmdp_viterbi(
     }
     g_arena.release(amark);
     return xCs + xC[1];
+}
+
+double hmmdp_viterbi(
+    const uint8_t* dsq, int32_t L,
+    const double* tBM, const double* tMM, const double* tIM,
+    const double* tDM, const double* tMD, const double* tDD,
+    const double* tMI, const double* tII,
+    const double* msc, const double* isc,
+    const double* xE, const double* xN, const double* xJ, const double* xC,
+    int32_t M, int32_t Kp) {
+    CallTimer call_timer;
+    return viterbi_core(dsq, L, tBM, tMM, tIM, tDM, tMD, tDD, tMI, tII,
+                        msc, isc, xE, xN, xJ, xC, M, Kp);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Batched postprocessing: many survivor pairs in one call
+// ---------------------------------------------------------------------------
+//
+// One call finishes a batch of (profile, target) pairs with the GIL
+// released for all of them: per pair, in order, the optional Viterbi F2
+// gate, the domain definition with the pair's seed and Forward floor (the
+// F3 bail-out), and each domain's alignment display (model, target,
+// identity and posterior lines, the bytes of the sequential pipeline's
+// _make_alignment_np).  The outputs are sized by what the pairs produce
+// and kept in this thread's BatchOut until hmmdp_dd_batch_read copies
+// them out, so one worker runs batch and read back to back.
+
+namespace {
+
+// row of the per-profile pointer table (ops/native.py BatchProfiles)
+enum {
+    BP_TBM, BP_TMM, BP_TIM, BP_TDM, BP_TMD, BP_TDD, BP_TMI, BP_TII,
+    BP_MSC, BP_ISC, BP_ODDS_M, BP_ODDS_I, BP_CORE, BP_DEGW, BP_DEG_ONE,
+    BP_SYM_U, BP_SYM_L, BP_SYM_UP, BP_CONS, BP_CONS_UP, BP_MPOS, BP_N
+};
+// row of the per-profile integer table
+enum { BI_M, BI_K, BI_KP, BI_NULL2, BI_NCONS, BI_N };
+// per-pair status
+enum { DD_HIT = 0, DD_GATED_VIT = 1, DD_GATED_F3 = 2, DD_OVERFLOW = 3 };
+
+template <typename T>
+struct Grow {  // a grow-only uninitialised buffer
+    T* p = nullptr;
+    int64_t cap = 0;
+    ~Grow() { delete[] p; }
+    T* get(int64_t n) {
+        if (n > cap) {
+            delete[] p;
+            cap = std::max<int64_t>(n, cap + cap / 2);
+            p = new T[cap];
+        }
+        return p;
+    }
+};
+
+struct BatchOut {
+    std::vector<int32_t> status, pair_int;   // per pair; pair_int 5 each
+    std::vector<double> pair_dbl;            // per pair: fwdsc, nexpected
+    std::vector<int64_t> n2_off;             // per pair, -1: none
+    std::vector<double> n2;                  // n2sc [L+1] of each hit pair
+    std::vector<int32_t> dom_int;            // per domain 6
+    std::vector<double> dom_dbl;             // per domain 3
+    std::vector<int64_t> dom_text;           // per domain: offset, length
+    std::vector<uint8_t> text;               // 4 lines of a domain's length
+    // per-pair scratch of hmmdp_domaindef's buffers
+    Grow<int32_t> s_dom_int; Grow<double> s_dom_dbl;
+    Grow<int8_t> s_st; Grow<int32_t> s_k; Grow<int32_t> s_i;
+    Grow<double> s_pp; Grow<int64_t> s_off; Grow<double> s_n2;
+    void clear() {
+        status.clear(); pair_int.clear(); pair_dbl.clear(); n2_off.clear();
+        n2.clear(); dom_int.clear(); dom_dbl.clear(); dom_text.clear();
+        text.clear();
+    }
+};
+thread_local BatchOut t_batch;
+
+// The display lines of one domain's trace [o0, o1), as the sequential
+// pipeline's _make_alignment_np builds them: the trace cut to its first
+// and last M state, then at its first state that is neither M, I nor D.
+void display_lines(BatchOut& out, const int8_t* st, const int32_t* tk,
+                   const int32_t* ti, const double* tp, int64_t o0,
+                   int64_t o1, const uint8_t* dsq, const void* const* P,
+                   int32_t ncons) {
+    const uint8_t* sym_u = (const uint8_t*)P[BP_SYM_U];
+    const uint8_t* sym_l = (const uint8_t*)P[BP_SYM_L];
+    const uint8_t* sym_up = (const uint8_t*)P[BP_SYM_UP];
+    const uint8_t* cons = (const uint8_t*)P[BP_CONS];
+    const uint8_t* cons_up = (const uint8_t*)P[BP_CONS_UP];
+    const uint8_t* mpos = (const uint8_t*)P[BP_MPOS];   // [Kp, ncons]
+    int64_t z0 = -1, z1 = -1;
+    for (int64_t z = o0; z < o1; z++)
+        if (st[z] == 'M') { if (z0 < 0) z0 = z; z1 = z + 1; }
+    if (z0 < 0) { z0 = o0; z1 = o1; }
+    int64_t stop = z1;
+    for (int64_t z = z0; z < z1; z++)
+        if (st[z] != 'M' && st[z] != 'I' && st[z] != 'D') { stop = z; break; }
+    const int64_t n = stop - z0;
+    const int64_t off = (int64_t)out.text.size();
+    out.dom_text.push_back(off);
+    out.dom_text.push_back(n);
+    out.text.resize(off + 4 * n);
+    uint8_t* model = out.text.data() + off;
+    uint8_t* target = model + n;
+    uint8_t* mid = target + n;
+    uint8_t* ppl = mid + n;
+    for (int64_t q = 0; q < n; q++) {
+        const int64_t z = z0 + q;
+        const char s = (char)st[z];
+        const bool isM = s == 'M', isI = s == 'I', isD = s == 'D';
+        const int k = std::min<int64_t>(tk[z], ncons - 1);
+        const uint8_t res = dsq[std::max<int32_t>(ti[z] - 1, 0)];
+        const uint8_t mc = cons[k];
+        model[q] = isI ? (uint8_t)'.' : mc;
+        target[q] = isM ? sym_u[res] : isI ? sym_l[res] : (uint8_t)'-';
+        const bool same = cons_up[k] == sym_up[res];
+        const bool plus = mpos[(size_t)res * ncons + k] != 0;
+        mid[q] = (isM && same) ? mc : (isM && plus) ? (uint8_t)'+'
+                                                   : (uint8_t)' ';
+        int64_t x = std::min<int64_t>((int64_t)std::rint(tp[z] * 10.0), 10);
+        uint8_t c = x >= 10 ? (uint8_t)'*' : (uint8_t)('0' + x);
+        ppl[q] = isD ? (uint8_t)'.' : c;
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// npairs pairs.  pair_i [npairs, 7]: the pair's row of the profile
+// tables prof_ptr [nprof, BP_N] and prof_int [nprof, BI_N], the address
+// of its L residues, L, its seed, its buffers' sizes max_dom and max_tr
+// (past which it overflows), and whether the Viterbi gate runs.  pair_d
+// [npairs, 4]: the Forward floor (finite), the Viterbi floor and the
+// length model's log loop and move; vit_xe is log(0.5).  sizes_out[4]:
+// pairs, domains, null2 scores, text bytes.  Returns the number of pairs
+// that ran the domain definition.
+int32_t hmmdp_domaindef_batch(
+    int32_t npairs, const int64_t* pair_i, const double* pair_d,
+    double vit_xe, const uint64_t* prof_ptr, const int32_t* prof_int,
+    int32_t nsamples, double rt1, double rt2, double rt3,
+    int64_t* sizes_out) {
+    CallTimer call_timer;
+    BatchOut& out = t_batch;
+    out.clear();
+    int32_t ndd = 0;
+    double scal[6];
+    const double xE[2] = {vit_xe, vit_xe};
+    for (int32_t p = 0; p < npairs; p++) {
+        const int64_t* pi = pair_i + 7 * (size_t)p;
+        const double* pdv = pair_d + 4 * (size_t)p;
+        const void* const* P = reinterpret_cast<const void* const*>(
+            prof_ptr + (size_t)pi[0] * BP_N);
+        const int32_t* I = prof_int + (size_t)pi[0] * BI_N;
+        const int32_t M = I[BI_M], K = I[BI_K], Kp = I[BI_KP];
+        const uint8_t* dsq = reinterpret_cast<const uint8_t*>(pi[1]);
+        const int32_t L = (int32_t)pi[2];
+        const double fwd_min = pdv[0];
+        const double* const* D = reinterpret_cast<const double* const*>(P);
+        int32_t st = DD_HIT;
+        double pd[2] = {0.0, 0.0};
+        int32_t pi5[5] = {0, 0, 0, 0, 0};
+        int64_t n2o = -1;
+        if (pi[6]) {
+            const double* x = pdv + 2;
+            double v = viterbi_core(
+                dsq, L, D[BP_TBM], D[BP_TMM], D[BP_TIM], D[BP_TDM],
+                D[BP_TMD], D[BP_TDD], D[BP_TMI], D[BP_TII], D[BP_MSC],
+                D[BP_ISC], xE, x, x, x, M, Kp);
+            if (v < pdv[1]) st = DD_GATED_VIT;
+        }
+        if (st == DD_HIT) {
+            ndd++;
+            const int32_t max_dom = (int32_t)pi[4];
+            const int64_t max_tr = pi[5];
+            int32_t* di = out.s_dom_int.get((int64_t)max_dom * 6);
+            double* dd = out.s_dom_dbl.get((int64_t)max_dom * 3);
+            int8_t* tst = out.s_st.get(max_tr);
+            int32_t* tk = out.s_k.get(max_tr);
+            int32_t* ti = out.s_i.get(max_tr);
+            double* tp = out.s_pp.get(max_tr);
+            int64_t* toff = out.s_off.get(max_dom + 1);
+            double* n2sc = out.s_n2.get(L + 1);
+            std::fill(n2sc, n2sc + L + 1, 0.0);
+            int32_t ndom = domaindef_core(
+                dsq, L, D[BP_TBM], D[BP_TMM], D[BP_TIM], D[BP_TDM],
+                D[BP_TMD], D[BP_TDD], D[BP_TMI], D[BP_TII], D[BP_MSC],
+                D[BP_ISC], M, K, Kp, D[BP_ODDS_M], D[BP_ODDS_I],
+                D[BP_DEGW], (const uint8_t*)P[BP_DEG_ONE], I[BI_NULL2],
+                (uint64_t)pi[3] & 0x7FFFFFFFFFFFFFFFULL, nsamples, rt1, rt2,
+                rt3, fwd_min, scal, n2sc, di, dd, max_dom, tst, tk, ti, tp,
+                toff, max_tr, P[BP_CORE], nullptr, 0.0, 0.0);
+            if (ndom < 0) {
+                st = DD_OVERFLOW;
+            } else if (scal[0] < fwd_min) {
+                st = DD_GATED_F3;
+                pd[0] = scal[0];
+            } else {
+                pd[0] = scal[0]; pd[1] = scal[1];
+                for (int q = 0; q < 4; q++) pi5[q] = (int32_t)scal[2 + q];
+                pi5[4] = ndom;
+                n2o = (int64_t)out.n2.size();
+                out.n2.insert(out.n2.end(), n2sc, n2sc + L + 1);
+                for (int32_t d = 0; d < ndom; d++) {
+                    out.dom_int.insert(out.dom_int.end(), di + 6 * d,
+                                       di + 6 * d + 6);
+                    out.dom_dbl.insert(out.dom_dbl.end(), dd + 3 * d,
+                                       dd + 3 * d + 3);
+                    display_lines(out, tst, tk, ti, tp, toff[d], toff[d + 1],
+                                  dsq, P, I[BI_NCONS]);
+                }
+            }
+        }
+        out.status.push_back(st);
+        out.pair_dbl.insert(out.pair_dbl.end(), pd, pd + 2);
+        out.pair_int.insert(out.pair_int.end(), pi5, pi5 + 5);
+        out.n2_off.push_back(n2o);
+    }
+    sizes_out[0] = npairs;
+    sizes_out[1] = (int64_t)out.dom_dbl.size() / 3;
+    sizes_out[2] = (int64_t)out.n2.size();
+    sizes_out[3] = (int64_t)out.text.size();
+    return ndd;
+}
+
+// Copy this thread's last batch out.  ints: status [N], pair_int
+// [N, 5], n2_off [N], dom_int [D, 6], dom_text [D, 2]; dbls: pair_dbl
+// [N, 2], dom_dbl [D, 3], the null2 scores; text: the display lines.
+void hmmdp_dd_batch_read(int64_t* ints, double* dbls, uint8_t* text) {
+    const BatchOut& out = t_batch;
+    for (const auto* v : {&out.status, &out.pair_int})
+        ints = std::copy(v->begin(), v->end(), ints);
+    ints = std::copy(out.n2_off.begin(), out.n2_off.end(), ints);
+    ints = std::copy(out.dom_int.begin(), out.dom_int.end(), ints);
+    std::copy(out.dom_text.begin(), out.dom_text.end(), ints);
+    for (const auto* v : {&out.pair_dbl, &out.dom_dbl, &out.n2})
+        dbls = std::copy(v->begin(), v->end(), dbls);
+    std::copy(out.text.begin(), out.text.end(), text);
 }
 
 }  // extern "C"

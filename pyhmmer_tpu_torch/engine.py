@@ -55,7 +55,7 @@ from .plan7.hmm import HMM
 from .plan7.pipeline import (F2_SKIP_SLACK, F3_SLACK, LOG2,
                              MAX_TARGET_LENGTH, Pipeline)
 from .plan7.profile import Profile
-from .plan7.results import TopHits
+from .plan7.results import Alignment, Domain, Hit, TopHits
 
 __all__ = ["SearchEngine"]
 
@@ -80,6 +80,12 @@ ROWS_MAX_L = 2048
 ROWS_MAX_MP = 768
 #: buckets with a longer Lmax launch their MSV scans on side streams
 LONG_BUCKET = 2048
+#: DP cells (M x L summed over its pairs) at which a batch of survivors
+#: goes to the postprocessing pool: tens of milliseconds of native work
+BATCH_CELLS = 2_000_000
+#: a wave of survivors too small to give every worker this many batches
+#: at ``BATCH_CELLS`` is cut into smaller ones
+BATCHES_PER_WORKER = 4
 
 
 def pool_size() -> int:
@@ -149,6 +155,185 @@ def _pool_job(fn, *args):
     c1 = time.thread_time()
     w1 = time.perf_counter()
     return out, (w1 - w0, c1 - c0, n1[0] - n0[0], n1[1] - n0[1])
+
+
+class _Batcher:
+    """Survivor pairs gathered into batches for the pool, in the order
+    they come.  ``open(bound)`` starts a wave whose cells are at most
+    ``bound``: its batches go out as they fill.  ``open()`` starts one
+    held until ``close()``, which knows its cells.  The cap of a wave is
+    ``BATCH_CELLS``, lowered so that the wave gives each of ``workers``
+    ``BATCHES_PER_WORKER`` batches.  ``close()`` sends what is left, so
+    no batch waits on the next stage."""
+
+    def __init__(self, send, workers: int):
+        self.send = send
+        self.workers = workers
+        self.jobs: list = []
+        self.cells: list = []
+        self.total = 0
+        self.cap: Optional[int] = None
+
+    def _cap(self, cells: int) -> int:
+        return max(1, min(BATCH_CELLS, int(cells) // (
+            BATCHES_PER_WORKER * self.workers)))
+
+    def open(self, bound: Optional[int] = None) -> None:
+        self.cap = None if bound is None else self._cap(bound)
+
+    def add(self, job, cells: int) -> None:
+        self.jobs.append(job)
+        self.cells.append(cells)
+        if self.cap is not None:
+            self.total += cells
+            if self.total >= self.cap:
+                self.send(self.jobs)
+                self.jobs, self.cells, self.total = [], [], 0
+
+    def close(self) -> None:
+        cap = self.cap if self.cap is not None else self._cap(sum(self.cells))
+        start, acc = 0, 0
+        for k, c in enumerate(self.cells):
+            acc += c
+            if acc >= cap:
+                self.send(self.jobs[start: k + 1])
+                start, acc = k + 1, 0
+        if start < len(self.jobs):
+            self.send(self.jobs[start:])
+        self.jobs, self.cells, self.total, self.cap = [], [], 0, None
+
+
+def _lse0(a):
+    # log(1 + e^a), as Pipeline._build_hit computes it
+    return math.log1p(math.exp(a)) if a < 30.0 else a
+
+
+def _elogsurv(x, tau, lam):
+    return 0.0 if x < tau else -lam * (x - tau)
+
+
+def _batch_hit(pli: Pipeline, prof: Profile, sq, hits: TopHits,
+               fwdsc: float, nullsc: float, nexpected: float, counts,
+               n2sc: np.ndarray, doms) -> "Optional[Hit]":
+    """The hit ``Pipeline._build_hit`` builds from the same domain
+    definition, from a batch's outputs (``native.domaindef_batch``):
+    ``counts`` (regions, clustered, overlaps, envelopes, domains),
+    ``n2sc`` [L+1] and ``doms``, a domain's bounds (envelope, alignment,
+    model), its scores (envelope, null2 correction, optimal accuracy)
+    and its four display lines.  The same scores in the same order of
+    operations, so every field is equal."""
+    nregions, nclustered, noverlaps, nenvelopes, ndom = counts
+    if nregions == 0 or ndom == 0:
+        return None
+    L = len(sq)
+    ev = prof.evparam.astype(np.float64)
+    log_omega = math.log(pli.background.omega)
+    null2 = pli.null2
+    seqbias = (_lse0(log_omega + float(n2sc[1:].sum())) if null2
+               else 0.0)
+    pre_score = (fwdsc - nullsc) / LOG2
+    seq_score = (fwdsc - (nullsc + seqbias)) / LOG2
+    sum_score = 0.0
+    sum_bias = 0.0
+    Ld_total = 0
+    for (ienv, jenv, *_), (envsc, domcorrection, _), _ in doms:
+        if (envsc - domcorrection > 0.0) if null2 else (envsc > 0.0):
+            sum_score += envsc
+            Ld_total += jenv - ienv + 1
+            if null2:
+                sum_bias += domcorrection
+    sum_score += (L - Ld_total) * math.log(L / (L + 3.0))
+    sum_bias = _lse0(log_omega + sum_bias) if null2 else 0.0
+    pre2_score = (sum_score - nullsc) / LOG2
+    sum_score = (sum_score - (nullsc + sum_bias)) / LOG2
+    if Ld_total > 0 and sum_score > seq_score:
+        seq_score = sum_score
+        pre_score = pre2_score
+    lnP = _elogsurv(seq_score, ev[4], ev[5])
+    if pli._mode == "scan":
+        tname, tacc = prof.name, prof.accession
+        tdesc, tlen = prof.description, prof.M
+    else:
+        tname, tacc = sq.name, sq.accession or None
+        tdesc, tlen = sq.description or None, L
+    hit = Hit(hits, tname, tacc, tdesc, tlen,
+              score=float(seq_score), pre_score=float(pre_score),
+              sum_score=float(sum_score), lnP=lnP,
+              nexpected=nexpected, nregions=nregions,
+              nclustered=nclustered, noverlaps=noverlaps,
+              nenvelopes=nenvelopes)
+    best_idx, best_sc = 0, -np.inf
+    log_l_l3 = math.log(L / (L + 3.0))
+    hmm_accession = prof.accession or prof.name
+    for di, ((ienv, jenv, iali, jali, hmmfrom, hmmto),
+             (envsc, domcorrection, oasc), lines) in enumerate(doms):
+        bitsc = envsc + (L - (jenv - ienv + 1)) * log_l_l3
+        dombias = _lse0(log_omega + domcorrection) if null2 else 0.0
+        bitsc = (bitsc - (nullsc + dombias)) / LOG2
+        ali = Alignment(
+            hmm_name=prof.name, hmm_accession=hmm_accession,
+            hmm_from=hmmfrom, hmm_to=hmmto, hmm_sequence=lines[0],
+            hmm_length=prof.M, target_name=sq.name, target_from=iali,
+            target_to=jali, target_sequence=lines[1], target_length=L,
+            identity_sequence=lines[2], posterior_probabilities=lines[3])
+        hit.domains.append(Domain(
+            hit, ienv, jenv, iali, jali, score=float(bitsc),
+            bias=float(dombias), correction=float(domcorrection),
+            envelope_score=float(envsc), oasc=oasc,
+            lnP=_elogsurv(bitsc, ev[4], ev[5]), alignment=ali))
+        if bitsc > best_sc:
+            best_sc, best_idx = bitsc, di
+    hit.best_domain_idx = best_idx
+    return hit
+
+
+def finish_pairs(tables, pairs, rerun):
+    """Finish survivor pairs on a pool worker: one native call runs every
+    pair's Viterbi F2 gate, domaindef, F3 gate and alignment lines
+    (``native.domaindef_batch``, the GIL released), then the hits are
+    built from its outputs (:func:`_batch_hit`).  A pair is ``(pipeline,
+    profile, its row of tables, target, the address of its residues,
+    seed, Forward floor, null score, Viterbi floor or None, TopHits)``.
+    A pair that overflowed a buffer takes ``rerun(k)``, the per-pair
+    path.  Returns the outcomes, as ``run_domaindef`` gives them, the
+    pairs that reached the native domaindef and the native calls that
+    ran it."""
+    ndd, out = _native.domaindef_batch(
+        tables, [p[2] for p in pairs], [p[4] for p in pairs],
+        [len(p[3]) for p in pairs], [p[5] for p in pairs],
+        [p[6] for p in pairs], [p[8] for p in pairs])
+    status = out["status"].tolist()
+    pair_dbl = out["pair_dbl"].tolist()
+    pair_int = out["pair_int"].tolist()
+    n2_off = out["n2_off"].tolist()
+    dom_int = out["dom_int"].tolist()
+    dom_dbl = out["dom_dbl"].tolist()
+    dom_text = out["dom_text"].tolist()
+    n2, text = out["n2"], out["text"].tobytes()
+    outs, calls, d0 = [], 1 if ndd else 0, 0
+    for k, (pli, prof, _, sq, _, _, _, nullsc, _, hits) in enumerate(pairs):
+        code = status[k]
+        if code == _native.DD_GATED_VIT:
+            outs.append(("gated_vit",))
+        elif code == _native.DD_GATED_F3:
+            outs.append(("gated", pair_dbl[k][0]))
+        elif code == _native.DD_OVERFLOW:
+            calls += 1
+            outs.append(rerun(k))
+        else:
+            d1 = d0 + pair_int[k][4]
+            doms = []
+            for d in range(d0, d1):
+                o, n = dom_text[d]
+                doms.append((dom_int[d], dom_dbl[d], [
+                    text[o + q * n: o + (q + 1) * n].decode()
+                    for q in range(4)]))
+            d0 = d1
+            o = n2_off[k]
+            outs.append(("hit", _batch_hit(
+                pli, prof, sq, hits, pair_dbl[k][0], nullsc, pair_dbl[k][1],
+                pair_int[k], n2[o: o + len(sq) + 1], doms)))
+    return outs, ndd, calls
 
 
 def block_key(block: DigitalSequenceBlock) -> bytes:
@@ -384,7 +569,8 @@ class SearchEngine:
         #: stages start), spans (``<name>_s``: :func:`span`) and counters
         tmark: dict = {"submit_s": 0.0, "s1.bias_wait_s": 0.0,
                        "pool_jobs": 0, "pool_native_s": 0.0,
-                       "pool_native_cpu_s": 0.0, "pool_py_s": 0.0}
+                       "pool_native_cpu_s": 0.0, "pool_py_s": 0.0,
+                       "dd_pairs": 0, "dd_native_calls": 0}
         with span(tmark, "setup"):
             queries = list(queries)
             if any(len(s) > MAX_TARGET_LENGTH for s in targets):
@@ -458,7 +644,55 @@ class SearchEngine:
             pool_wall += wall
             return out
 
-        pending = []   # (job tuple, future | None)
+        pending = []   # ([job tuple, ...], future | None)
+
+        if native_ok:
+            # the batches' tables: every profile of the search, and every
+            # packed target row's address and length
+            tables = _native.BatchTables(
+                [p for st in states for p in st.profs],
+                [pli.null2 for st in states for pli in st.pipelines])
+            prof_off = np.cumsum([0] + [len(st.profs) for st in states])
+            row_ptr = np.concatenate([np.zeros(0, np.int64)] + [
+                codes.ctypes.data + codes.shape[1] * np.arange(len(codes))
+                for _, codes, _, _ in buckets.buckets])
+            row_off = np.cumsum(
+                [0] + [len(bk[2]) for bk in buckets.buckets])
+
+        def run_batch(jobs):
+            """Worker body of a batch of jobs (:func:`finish_pairs`; a
+            pair that overflowed a buffer takes :func:`run_domaindef`)."""
+            cbpb = np.array([(j[0], j[1], j[2], j[4]) for j in jobs],
+                            np.int64).reshape(-1, 4)
+            ptrs = row_ptr[row_off[cbpb[:, 1]] + cbpb[:, 3]].tolist()
+            pairs = []
+            for job, gp, ptr in zip(jobs, (prof_off[cbpb[:, 0]]
+                                           + cbpb[:, 2]).tolist(), ptrs):
+                st, pi = states[job[0]], job[2]
+                pairs.append((st.pipelines[pi], st.profs[pi], gp,
+                              targets[job[3]], ptr, job[5], job[6], job[8],
+                              job[9], st.tophits[pi]))
+            return finish_pairs(tables, pairs,
+                                lambda k: run_domaindef(jobs[k]))
+
+        def run_single(job, ext):
+            """Worker body of a rows-stage pair: :func:`run_domaindef`,
+            counted as one native domaindef call."""
+            out = run_domaindef(job, ext)
+            n = 0 if out is not None and out[0] == "gated_vit" else 1
+            return [out], n, n
+
+        batcher = (_Batcher(
+            lambda jobs: pending.append(
+                (jobs, executor.submit(_pool_job, run_batch, jobs))),
+            executor._max_workers) if native_ok else None)
+
+        def close_wave():
+            """Send the wave's last batches before the stage's fetch."""
+            if batcher is not None:
+                t = time.perf_counter()
+                batcher.close()
+                tmark["submit_s"] += time.perf_counter() - t
 
         def run_domaindef(job, ext=None):
             """Worker body: optional native Viterbi F2 gate (host-routed
@@ -538,7 +772,7 @@ class SearchEngine:
                     else:
                         key = "n_rows_back"
                     tmark[key] = tmark.get(key, 0) + 1
-                    pending.append((job, to_pool(run_domaindef, job, ext)))
+                    pending.append(([job], to_pool(run_single, job, ext)))
             rows_launched.clear()
 
         def submit(ci, bi, pi, pass_row, fcols, idx, vit_min_row=None,
@@ -553,6 +787,8 @@ class SearchEngine:
             gate_off = (LOG2 * (ev[4] - math.log(F3s) / ev[5])
                         if F3s < 1.0 else -np.inf)
             defer = defer and rows_ok(ci, bi)
+            M = st.profs[pi].M
+            lens_b = buckets.buckets[bi][2]
             for col in np.where(pass_row)[0]:
                 b = int(fcols[col])
                 seed = (pli.seed if pli.do_reseeding
@@ -566,10 +802,10 @@ class SearchEngine:
                        vit_min)
                 if defer:
                     rows_pending.setdefault((ci, bi), []).append(job)
-                    continue
-                fut = (executor.submit(_pool_job, run_domaindef, job)
-                       if executor is not None else None)
-                pending.append((job, fut))
+                elif batcher is not None:
+                    batcher.add(job, M * int(lens_b[b]))
+                else:
+                    pending.append(([job], None))
             tmark["submit_s"] += time.perf_counter() - t_submit
 
         # -- stage 1 (device): MSV + fused bias for every chunk x bucket --
@@ -604,6 +840,7 @@ class SearchEngine:
         # -- stage 1 (host): MSV gate, then the exact bias filter on the
         # gate's candidates on the worker pool --
         s1_host_jobs = []   # (npairs, ci, bi, args, fut)
+        s1_cells = [0]
 
         def bias_stage(st, codes, lengths, pass1, nullsc, usc):
             filtersc = np.full_like(usc, np.nan)
@@ -658,6 +895,10 @@ class SearchEngine:
             fut = (to_pool(bias_stage, *args)
                    if executor is not None else None)
             s1_host_jobs.append((int(cand.sum()), ci, bi, args, fut))
+            # the DP cells of the candidates: a bound on those of the
+            # pairs this stage hands to the pool
+            ms = np.array([p.M for p in st.profs], np.int64)
+            s1_cells[0] += int(ms @ (cand @ lengths))
 
         arrs = _fetch_all(s1_parts)
         mark("s1_fetched")
@@ -666,7 +907,10 @@ class SearchEngine:
                 gate_pair(ci, bi, *arrs[off: off + 3])
 
             # gate + route in descending survivor count, enqueueing each
-            # job's Forward kernel as soon as it is routed
+            # job's Forward kernel as soon as it is routed; the pairs
+            # routed to the host go out in batches as they fill
+            if batcher is not None:
+                batcher.open(s1_cells[0])
             s1_host_jobs.sort(key=lambda j: -j[0])
             s2_jobs = []
             s2_parts = []
@@ -729,10 +973,12 @@ class SearchEngine:
                 s2_parts.append(fwd_cuda.forward(st.pb, dev, *self._survivors(
                     c["bsel"], c["pass2"][:, c["bsel"]])))
                 s2_jobs.append((ci, bi))
+            close_wave()
         mark("s1_host_done")
         tmark["n_s2_jobs"] = len(s2_jobs)
 
-        # -- stage 2 (host): Forward gate, Viterbi routing --
+        # -- stage 2 (host): Forward gate, Viterbi routing; the pairs it
+        # hands to the pool are held as one wave until the stage ends --
         s3_jobs = []
         s3_parts = []
         s2_np = _fetch_all(s2_parts)
@@ -769,6 +1015,7 @@ class SearchEngine:
                            defer=True)
             # wave 1 of the rows stage: the survivors that skip Viterbi
             launch_rows()
+            close_wave()
         mark("s2_done")
         tmark["n_s3_jobs"] = len(s3_jobs)
         s3_np = _fetch_all(s3_parts)
@@ -795,21 +1042,33 @@ class SearchEngine:
                            defer=True)
             # wave 2 (the Viterbi survivors), then the one rows fetch
             launch_rows()
+            close_wave()
         mark("s3_host_done")
         with span(tmark, "rows"):
             collect_rows()
         mark("rows_done")
 
+        def collected():
+            """Each job and its outcome, batches in submission order and
+            a batch's jobs in job order."""
+            for jobs, fut in pending:
+                if fut is None:
+                    yield jobs[0], None
+                    continue
+                outs, ndd, calls = pool_result(fut)
+                tmark["dd_pairs"] += ndd
+                tmark["dd_native_calls"] += calls
+                yield from zip(jobs, outs)
+
         # ---- collect: serial append of worker-built hits (deterministic
         # insertion order = deterministic tie-breaking in sort) ----
         with span(tmark, "collect"):
-            for job, fut in pending:
+            for job, out in collected():
                 (ci, bi, pi, tgt, b, seed, fwd_min, filtersc_b, nullsc_b,
                  vit_min) = job
                 st = states[ci]
                 pli = st.pipelines[pi]
                 vit_gated_here = vit_min is not None and np.isfinite(vit_min)
-                out = pool_result(fut) if fut is not None else None
                 if out is None:
                     # pure-Python fallback (no native library)
                     sq = targets[tgt]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import math
 import os
 import subprocess
 import tempfile
@@ -81,7 +82,8 @@ def _load_checked() -> ctypes.CDLL:
     lib.hmmdp_bias_filter_idx
     lib.hmmdp_phase_get
     lib.hmmdp_has_ext_rows
-    lib.hmmdp_call_times     # newest ABI marker; AttributeError if stale
+    lib.hmmdp_call_times
+    lib.hmmdp_domaindef_batch   # newest ABI marker; AttributeError if stale
     return lib
 
 
@@ -236,6 +238,18 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.hmmdp_forward_flogsum.restype = ctypes.c_double
     lib.hmmdp_phase_reset.argtypes = []
     lib.hmmdp_phase_reset.restype = None
+    # raw addresses: a batch passes few arrays, and ``ndpointer``'s
+    # check and cast of each costs more than the addresses do
+    _P = ctypes.c_void_p
+    lib.hmmdp_domaindef_batch.argtypes = [
+        _I32, _P, _P, ctypes.c_double,          # pairs: ints, floats, log 1/2
+        _P, _P,                                 # per-profile tables
+        _I32, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        _P,                                     # sizes out
+    ]
+    lib.hmmdp_domaindef_batch.restype = ctypes.c_int32
+    lib.hmmdp_dd_batch_read.argtypes = [_P, _P, _P]
+    lib.hmmdp_dd_batch_read.restype = None
     return lib
 
 
@@ -511,13 +525,12 @@ def _odds_tables(prof):
 
 
 def prewarm(prof) -> None:
-    """Build and cache the C-ABI tensors for a profile off the critical
-    path (first-call tensor construction otherwise lands on a worker)."""
+    """Build and cache the C-ABI tensors for a profile, and its rows of
+    the batch tables (:func:`_batch_row`), off the critical path
+    (first-call tensor construction otherwise lands on a worker)."""
     if get_lib() is None:
         return
-    get_tensors(prof)
-    _odds_tables(prof)
-    _null2_tables(prof.alphabet)
+    _batch_row(prof)
 
 
 import threading as _threading
@@ -534,6 +547,19 @@ def marginal_count() -> int:
 
 
 _dd_tls = _threading.local()
+
+
+def _dd_caps(L: int, M: int):
+    """The domain definition's buffers for a target of ``L`` residues and
+    a model of ``M`` nodes: at most this many domains and trace steps,
+    past which the call reports an overflow."""
+    max_dom = max(64, min(1024, L // 2 + 8))
+    return max_dom, L + max_dom * (M + 64) + 1024
+
+
+def _batch_caps(lens, Ms):
+    """:func:`_dd_caps` of each pair of a batch."""
+    return [_dd_caps(L, M) for L, M in zip(lens, Ms)]
 
 
 def _dd_buffers(max_dom: int, max_tr: int) -> dict:
@@ -594,9 +620,7 @@ def domaindef(prof_multi, dsq: np.ndarray, do_null2: bool, seed: int,
     W = pt.M + 1
     odds_m, odds_i = _odds_tables(prof_multi)
     degw, deg_one = _null2_tables(prof_multi.alphabet)
-    max_dom = max(64, min(1024, L // 2 + 8))
-    max_tr = int(L + max_dom * (pt.M + 64) + 1024)
-    bufs = _dd_buffers(max_dom, max_tr)
+    bufs = _dd_buffers(*_dd_caps(L, pt.M))
     out_scalars = bufs["scalars"]
     n2sc = np.zeros(L + 1)
     dom_int = bufs["dom_int"]
@@ -658,6 +682,120 @@ def domaindef(prof_multi, dsq: np.ndarray, do_null2: bool, seed: int,
     return float(out_scalars[0]), res
 
 
+#: per-pair status of :func:`domaindef_batch` (``csrc/hmmdp.cpp``): the
+#: pair passed the F3 gate (a hit, or no domain), was dropped by the
+#: Viterbi gate or by the F3 gate, or overflowed a buffer (the caller
+#: runs it through :func:`domaindef`)
+DD_HIT, DD_GATED_VIT, DD_GATED_F3, DD_OVERFLOW = 0, 1, 2, 3
+#: columns of the batch tables (``hmmdp.cpp``'s ``BP_N`` and ``BI_N``)
+_BP_N, _BI_N = 21, 5
+
+
+def _batch_row(prof):
+    """A profile's rows of the batch tables: the addresses of its C-ABI
+    arrays (``hmmdp.cpp``'s ``BP_*`` order) and its sizes (``BI_*``:
+    M, K, Kp, null2 (set per search), the consensus length), cached on
+    the profile beside the arrays they point into."""
+    pt = get_tensors(prof)
+    cached = getattr(prof, "_native_batch_row", None)
+    if cached is not None and cached[0] is pt:
+        return cached[1], cached[2]
+    from ..plan7.pipeline import Pipeline
+    odds_m, odds_i = _odds_tables(prof)
+    degw, deg_one = _null2_tables(prof.alphabet)
+    sym_u, sym_l, cons_u8, cons_up, sym_up, mpos = (
+        Pipeline._display_tables(prof))
+    ptrs = ([a.ctypes.data for a in (pt.tBM, pt.tMM, pt.tIM, pt.tDM,
+                                     pt.tMD, pt.tDD, pt.tMI, pt.tII,
+                                     pt.msc, pt.isc, odds_m, odds_i)]
+            + [pt.core or 0]
+            + [a.ctypes.data for a in (degw, deg_one, sym_u, sym_l, sym_up,
+                                       cons_u8, cons_up, mpos)])
+    ints = np.array([pt.M, prof.alphabet.K, pt.Kp, 0, len(cons_u8)],
+                    np.int32)
+    row = np.array(ptrs, np.uint64)
+    prof._native_batch_row = (pt, row, ints)
+    return row, ints
+
+
+class BatchTables:
+    """The per-profile tables a search's batches index: one row of
+    addresses and one of sizes a profile, with null2 on or off as its
+    pipeline has it.  The profiles hold the arrays the rows point into,
+    and this holds the profiles."""
+
+    def __init__(self, profs, null2):
+        rows = [_batch_row(p) for p in profs]
+        self.profs = list(profs)
+        self.ptr = np.array([r[0] for r in rows], np.uint64).reshape(
+            len(rows), _BP_N)
+        self.ints = np.array([r[1] for r in rows], np.int32).reshape(
+            len(rows), _BI_N)
+        self.ints[:, 3] = null2
+        self.M = self.ints[:, 0].tolist()
+
+
+def domaindef_batch(tables: BatchTables, prof_idx, dsq_ptr, lens, seeds,
+                    fwd_min, vit_min, nsamples: int = 200,
+                    rt1: float = 0.25, rt2: float = 0.10,
+                    rt3: float = 0.20):
+    """Finish a batch of survivor pairs in one native call, the GIL
+    released for all of them.  Per pair (its ``tables`` row
+    ``prof_idx``, its ``lens`` residues at address ``dsq_ptr``): the
+    native Viterbi gate where its ``vit_min`` is finite (as
+    :func:`viterbi_score`), then :func:`domaindef` with its ``seed`` and
+    ``fwd_min``, and each domain's alignment display lines.
+
+    Returns ``(ndd, out)``: the pairs that ran the domain definition,
+    and the outputs, read back in one call: ``status`` [N] (``DD_*``),
+    ``pair_int`` [N, 5] (regions, clustered, overlaps, envelopes,
+    domains), ``n2_off`` [N] (where a hit pair's null2 scores [L+1]
+    start in ``n2``, -1 for the others), ``dom_int`` [D, 6] (envelope,
+    alignment and model bounds), ``dom_text`` [D, 2] (offset and length
+    n in ``text`` of the model, target, identity and posterior lines, n
+    bytes each), ``pair_dbl`` [N, 2] (Forward score, expected domains),
+    ``dom_dbl`` [D, 3] (envelope score, null2 correction, optimal
+    accuracy score), ``n2`` and ``text``; the domains in pair order."""
+    lib = get_lib()
+    n = len(lens)
+    gated = [v is not None and math.isfinite(v) for v in vit_min]
+    caps = _batch_caps(lens, [tables.M[p] for p in prof_idx])
+    pair_i = np.array([
+        (p, a, L, s & 0x7FFFFFFFFFFFFFFF, md, mt, g) for p, a, L, s, (md, mt), g
+        in zip(prof_idx, dsq_ptr, lens, seeds, caps, gated)],
+        np.int64).reshape(n, 7)
+    pair_d = np.zeros((n, 4))
+    pair_d[:, 0] = np.clip(fwd_min, -1e300, 1e300)
+    if any(gated):
+        # the floor and the length model of viterbi_score, as it
+        # computes them
+        on = np.flatnonzero(gated)
+        pmove = 3.0 / (pair_i[on, 2] + 3.0)
+        pair_d[on, 1] = [vit_min[k] for k in on.tolist()]
+        pair_d[on, 2] = np.log(1.0 - pmove)
+        pair_d[on, 3] = np.log(pmove)
+    sizes = np.zeros(4, np.int64)
+    ndd = lib.hmmdp_domaindef_batch(
+        n, pair_i.ctypes.data, pair_d.ctypes.data, float(np.log(0.5)),
+        tables.ptr.ctypes.data, tables.ints.ctypes.data, nsamples, rt1, rt2,
+        rt3, sizes.ctypes.data)
+    _, ndom, nn2, ntext = sizes.tolist()
+    ints = np.empty(7 * n + 8 * ndom, np.int64)
+    dbls = np.empty(2 * n + 3 * ndom + nn2)
+    text = np.empty(ntext, np.uint8)
+    lib.hmmdp_dd_batch_read(ints.ctypes.data, dbls.ctypes.data,
+                            text.ctypes.data)
+    i1, i2, i3 = n, 6 * n, 7 * n
+    i4 = i3 + 6 * ndom
+    d1, d2 = 2 * n, 2 * n + 3 * ndom
+    return int(ndd), dict(
+        status=ints[:i1], pair_int=ints[i1:i2].reshape(n, 5),
+        n2_off=ints[i2:i3], dom_int=ints[i3:i4].reshape(ndom, 6),
+        dom_text=ints[i4:].reshape(ndom, 2),
+        pair_dbl=dbls[:d1].reshape(n, 2),
+        dom_dbl=dbls[d1:d2].reshape(ndom, 3), n2=dbls[d2:], text=text)
+
+
 def bias_filter_batch(odds1: np.ndarray, codes: np.ndarray,
                       lens: np.ndarray) -> Optional[np.ndarray]:
     """Native 2-state bias-filter log-odds scores (no null1 term) for a
@@ -700,7 +838,8 @@ def available() -> bool:
 
 def call_times() -> tuple:
     """``(wall, cpu)``: this thread's seconds inside ``hmmdp_domaindef``,
-    ``hmmdp_viterbi`` and ``hmmdp_bias_filter_idx`` since it started,
+    ``hmmdp_domaindef_batch``, ``hmmdp_viterbi`` and
+    ``hmmdp_bias_filter_idx`` since it started,
     timed by the library with the GIL released (the wait to retake it on
     return left out); ``(0.0, 0.0)`` without the library."""
     lib = get_lib()
